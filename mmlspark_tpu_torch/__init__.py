@@ -1,0 +1,31 @@
+"""mmlspark_tpu_torch — the PyTorch/CUDA port of mmlspark_tpu.
+
+A second package beside the JAX one, with the same stages, Params and
+DataFrame contract, for one NVIDIA H100. It imports torch and numpy, never
+jax or anything of ``mmlspark_tpu``. Entry points run on CUDA unless the
+caller asks for the CPU.
+
+Ported so far (ROADMAP.md): the serving path — DataFrame of token ids ->
+``TorchModel.transform`` -> scores column — over the causal
+``TransformerEncoder``, with attention in a hand-written CUDA
+flash-attention forward kernel (``ops/csrc/flash_attention_fwd.cu``).
+
+Importing the package stays light: torch loads on first use of
+``TorchModel`` or ``build_model``.
+"""
+
+from .core.dataframe import DataFrame
+from .core.pipeline import Pipeline, PipelineModel
+
+__all__ = ["DataFrame", "Pipeline", "PipelineModel", "TorchModel",
+           "build_model"]
+
+
+def __getattr__(name):
+    if name == "TorchModel":
+        from .models.torch_model import TorchModel
+        return TorchModel
+    if name == "build_model":
+        from .models.modules import build_model
+        return build_model
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
