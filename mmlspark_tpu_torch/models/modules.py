@@ -7,11 +7,17 @@ truncation: ``forward(x, output_layer=name)`` returns that intermediate
 activation (reference: ImageFeaturizer.scala:117-142), and
 ``layer_names()`` lists the valid names in forward order.
 
-Numerics follow the flax modules so the same weights give the same scores:
-Dense and Embed weights are held in the compute dtype (flax casts its f32
-params to it at every call, which rounds the same way), LayerNorm keeps f32
-params and computes its statistics in f32 with epsilon 1e-6, GELU is the
-tanh approximation, and mean-pooling sums in f32.
+Numerics follow the flax modules so the same weights give the same scores
+and train the same way: every parameter is held in float32 (flax's
+``param_dtype``) and cast to the compute dtype at each call — a bf16 master
+weight would swallow Adam's small updates. Dense layers compute
+``F.linear(x, w.to(dt), b.to(dt))``; embeddings gather rows from the f32
+table and cast them (flax casts the table, then gathers: the same values
+forward, but the backward accumulates repeated tokens in f32 where flax
+scatter-adds in bf16). LayerNorm computes its statistics in f32 with
+epsilon 1e-6, GELU is the tanh approximation, and mean-pooling sums in f32.
+``remat=True`` recomputes each block's forward during the backward
+(``torch.utils.checkpoint``, non-reentrant), as flax's ``nn.remat`` does.
 
 The other families (MLP, ConvNet, ResNet, BiLSTM) are ROADMAP.md Queue 1
 item 2; ``build_model`` raises NotImplementedError for them.
@@ -24,6 +30,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -77,6 +84,33 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` semantics: float32 weight and bias (``nn.Linear``'s
+    state_dict names), cast to the compute dtype at each call."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
+                 bias: bool = True):
+        super().__init__(d_in, d_out, bias=bias, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed``: a float32 table whose gathered rows are cast to
+    the compute dtype."""
+
+    def __init__(self, num: int, d: int, dtype: torch.dtype):
+        super().__init__(num, d, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
 class _EncoderBlock(nn.Module):
     """One pre-norm transformer block: attention + dense FFN."""
 
@@ -87,11 +121,11 @@ class _EncoderBlock(nn.Module):
         self.attention = attention     # (q, k, v) -> o, from the encoder
         hidden = mlp_ratio * d_model
         self.ln1 = LayerNorm(d_model, dtype)
-        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, dtype=dtype)
-        self.proj = nn.Linear(d_model, d_model, bias=False, dtype=dtype)
+        self.qkv = Dense(d_model, 3 * d_model, dtype, bias=False)
+        self.proj = Dense(d_model, d_model, dtype, bias=False)
         self.ln2 = LayerNorm(d_model, dtype)
-        self.fc1 = nn.Linear(d_model, hidden, dtype=dtype)
-        self.fc2 = nn.Linear(hidden, d_model, dtype=dtype)
+        self.fc1 = Dense(d_model, hidden, dtype)
+        self.fc2 = Dense(hidden, d_model, dtype)
 
     def forward(self, x):
         B, T, d = x.shape
@@ -112,6 +146,11 @@ class TransformerEncoder(nn.Module):
     plain-PyTorch FlashAttention recurrence (honours ``block_size``), and
     ``auto`` picks flash on a CUDA device and blockwise on the CPU.
 
+    ``remat``: under grad mode each block runs inside a non-reentrant
+    checkpoint, so its activations are recomputed during the backward
+    instead of kept (O(T) activation memory per layer instead of O(layers
+    x T), at the price of a second forward of every block).
+
     Input: int token ids (B, T). Output: (B, num_classes) float32 when
     ``pool='mean'``, else per-token (B, T, num_classes).
     """
@@ -121,7 +160,8 @@ class TransformerEncoder(nn.Module):
                  num_classes: int = 2, max_len: int = 2048,
                  causal: bool = False, pool: str = "mean",
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "auto", block_size: int = 512):
+                 attn_impl: str = "auto", block_size: int = 512,
+                 remat: bool = False):
         super().__init__()
         if d_model % heads != 0:
             raise ValueError(f"d_model ({d_model}) must be divisible "
@@ -138,13 +178,14 @@ class TransformerEncoder(nn.Module):
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.block_size = block_size
-        self.tok_embed = nn.Embedding(vocab_size, d_model, dtype=dtype)
-        self.pos_embed = nn.Embedding(max_len, d_model, dtype=dtype)
+        self.remat = remat
+        self.tok_embed = Embed(vocab_size, d_model, dtype)
+        self.pos_embed = Embed(max_len, d_model, dtype)
         self.blocks = nn.ModuleList(
             _EncoderBlock(d_model, heads, mlp_ratio, dtype, self._attention)
             for _ in range(layers))
         self.ln_f = LayerNorm(d_model, dtype)
-        self.head = nn.Linear(d_model, num_classes, dtype=dtype)
+        self.head = Dense(d_model, num_classes, dtype)
 
     def layer_names(self):
         return ["embed"] + [f"block{i}" for i in range(self.layers)] + ["logits"]
@@ -170,8 +211,11 @@ class TransformerEncoder(nn.Module):
         x = tap.tap("embed", self.tok_embed(tokens) + self.pos_embed(pos)[None])
         if tap.done:
             return tap.result.float()
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = tap.tap(f"block{i}", blk(x))
+            x = tap.tap(f"block{i}",
+                        checkpoint(blk, x, use_reentrant=False) if remat
+                        else blk(x))
             if tap.done:
                 return tap.result.float()
         x = self.ln_f(x)
@@ -192,7 +236,6 @@ def _build_transformer(cfg: dict) -> TransformerEncoder:
         raise NotImplementedError(
             "MoE transformer blocks (num_experts > 0) wait for their own "
             "slice with models/moe.py (ROADMAP.md Queue 1 item 12)")
-    # cfg["remat"] only changes the backward pass; inference is identical
     return TransformerEncoder(
         vocab_size=cfg.get("vocab_size", 10000),
         d_model=cfg.get("d_model", 128),
@@ -205,6 +248,7 @@ def _build_transformer(cfg: dict) -> TransformerEncoder:
         pool=cfg.get("pool", "mean"),
         block_size=cfg.get("block_size", 512),
         attn_impl=cfg.get("attn_impl", "auto"),
+        remat=cfg.get("remat", False),
         dtype=resolve_dtype(cfg.get("dtype")))
 
 

@@ -53,93 +53,14 @@
 // (the only path to the full tensor-core rate), TMA loads, warp-specialised
 // producer/consumer pipelining, and larger query tiles per block.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;  // query rows per block (both variants)
-
-// row pointers of one (batch, head): element (t, d) at base + t * st + d
-struct Rows {
-  long long sb, st, sh;  // strides of batch, time and head, in elements
-};
+constexpr int BQ = 64;      // query rows per block (both variants)
+constexpr int BK_MMA = 32;  // keys per inner tile (bfloat16)
 
 // ---------------------------------------------------------------- bfloat16
-
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int BK_MMA = 32;        // keys per inner tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices, one per quarter-warp of row addresses; lane l
-// gets row l/4, columns 2(l%4) and 2(l%4)+1 of each (.trans: the transpose)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without passing through registers; nbytes 0
-// writes zeros (the ragged edge) and reads nothing
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int nbytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(nbytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// start copying `rows` rows (row stride `st` elements) into shared memory
-// with row stride LD; rows at or past `valid` become zeros
-template <int D, int LD>
-__device__ __forceinline__ void stage_rows_async(__nv_bfloat16* dst,
-                                                 const __nv_bfloat16* src,
-                                                 long long st, int rows,
-                                                 int valid, int tid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < rows * VPR; i += MMA_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r < valid;
-    cp_async_16(dst + r * LD + c, ok ? src + r * st + c : src, ok ? 16 : 0);
-  }
-}
 
 template <int D>
 constexpr size_t mma_smem_bytes() {  // Q + two buffers each of K and V
@@ -156,7 +77,6 @@ __global__ void __launch_bounds__(MMA_THREADS)
                    float scale) {
   constexpr int BK = BK_MMA;
   constexpr int LD = D + 8;      // 16-byte rows; ldmatrix rows hit 32 banks
-  constexpr int KS = D / 16;     // k-steps of Q K^T
   constexpr int NT = BK / 8;     // n-tiles of S per warp
   constexpr int DT = D / 8;      // n-tiles of the output per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -170,7 +90,6 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in quad
   const int wr = warp * 16 + g;           // this lane's first row in the tile
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
   const __nv_bfloat16* kb = k + b * kl.sb + hd * kl.sh;
   const __nv_bfloat16* vb = v + b * vl.sb + hd * vl.sh;
   const float sl2 = scale * LOG2E;  // softmax runs in base 2
@@ -206,26 +125,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
     }
     __syncthreads();
 
-    // S = Q K^T. ldmatrix_x4 gives Q's A fragment for one k-step, and the
-    // B fragments (k = d, n = key) of two n-tiles: matrices
-    // (keys +0..7 | +8..15) x (d +0..7 | +8..15)
+    // S = Q K^T
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qf[4];
-      ldmatrix_x4(qf, Qs + (warp * 16 + (mi & 1) * 8 + mr) * LD + ks * 16 +
-                          (mi >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Kc + (np * 16 + (mi >> 1) * 8 + mr) * LD + ks * 16 +
-                            (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
-      }
-    }
+    mma_abt<D, NT>(s, Qs, Kc, warp, lane);
 
     // to base-2 logits; mask only where this warp's rows meet the causal
     // diagonal or the tile runs past Tk. Element e of n-tile nt is row
@@ -276,24 +180,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
       }
     }
 
-    // O += P V: P's A fragments are S's accumulators rounded to bf16; one
-    // transposing ldmatrix_x4 gives the B fragments (k = key, n = d) of two
-    // output n-tiles: matrices (keys +0..7 | +8..15) x (d tile j | j+1)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jp = 0; jp < DT / 2; ++jp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vc + (kk * 16 + (mi & 1) * 8 + mr) * LD +
-                                  (2 * jp + (mi >> 1)) * 8);
-        mma_bf16(o[2 * jp], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * jp + 1], pa, vf[2], vf[3]);
-      }
-    }
+    // O += P V, P rounded to bf16 in registers
+    mma_pb<D, NT>(o, s, Vc, lane);
     __syncthreads();  // every warp is done with this buffer before it refills
   }
 

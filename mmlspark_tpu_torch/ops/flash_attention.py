@@ -1,24 +1,36 @@
-"""Flash attention, forward: the port of ``mmlspark_tpu/ops/pallas_kernels.py``
-``flash_attention`` / ``_flash_attention_fwd_impl`` / ``_flash_kernel``.
+"""Flash attention: the port of ``mmlspark_tpu/ops/pallas_kernels.py``
+``flash_attention`` (its forward ``_flash_attention_fwd_impl`` /
+``_flash_kernel`` and its custom VJP ``_flash_attention_bwd`` /
+``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel``).
 
-Three functions, all in the JAX package's (B, T, H, D) layout:
+All in the JAX package's (B, T, H, D) layout:
 
-* :func:`flash_attention_fwd` — the kernel wrapper, returning ``(out, lse)``
-  with ``lse`` of shape (B*H, Tq) in float32. On CUDA tensors it launches
-  the hand-written kernel ``csrc/flash_attention_fwd.cu`` or raises; on CPU
-  tensors (the tests) it runs the plain version. ``flash_attention_fwd.
-  launches`` counts kernel launches and nothing else.
-* :func:`flash_attention_reference` — the plain PyTorch version of the same
-  function, with the kernel's masks, rounding points and lse semantics.
+* :func:`flash_attention_fwd` — the forward kernel wrapper, returning
+  ``(out, lse)`` with ``lse`` of shape (B*H, Tq) in float32. On CUDA tensors
+  it launches the hand-written kernel ``csrc/flash_attention_fwd.cu`` or
+  raises; on CPU tensors (the tests) it runs the plain version.
+  ``flash_attention_fwd.launches`` counts kernel launches and nothing else.
+* :func:`flash_attention_bwd` — the backward kernel wrapper, returning
+  ``(dq, dk, dv)``. On CUDA tensors it launches the two kernels of
+  ``csrc/flash_attention_bwd.cu`` (dq, then dk/dv) or raises; on CPU tensors
+  it runs the plain version. ``flash_attention_bwd.launches_dq`` and
+  ``.launches_dkv`` count the launches of each.
+* :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
+  — the plain PyTorch versions of the same functions, with the kernels'
+  masks, rounding points and lse semantics.
 * :func:`flash_attention` — returns ``out`` only, the counterpart of the JAX
-  package's public function. Forward only for now: on CUDA it refuses inputs
-  that require a gradient, because the backward kernels are the next slice.
+  package's public function, differentiable through ``_FlashAttention``.
 
-Semantics (from the TPU kernel): scores are float32 sums of input-typed
+Semantics (from the TPU kernels): scores are float32 sums of input-typed
 products, times ``scale`` (default 1/sqrt(D)); the causal mask is aligned
 top-left (query i sees keys j <= i); P is rounded to the value type before
 the PV product while the denominator sums unrounded P; a row that sees no
-key gets output 0 and lse = NEG_INF = -1e30.
+key gets output 0 and lse = NEG_INF = -1e30. The backward recomputes P from
+lse, takes D = rowsum(dO * O) in float32, rounds P to dO's type before
+P^T dO and dS = P (dO V^T - D) to the input type before dS K and dS^T Q,
+and scales dq and dk once at the end. (The plain versions accumulate in
+float64 for float64 inputs, so the autograd path can be gradchecked; the
+kernels take float32 and bfloat16.)
 """
 
 from __future__ import annotations
@@ -36,6 +48,17 @@ _C_FUNCTIONS = {
     "mmlspark_flash_attention_fwd": (
         ctypes.c_int,
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "mmlspark_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_C_FUNCTIONS_BWD = {
+    "mmlspark_flash_attention_bwd_dq": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "mmlspark_flash_attention_bwd_dkv": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "mmlspark_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -66,6 +89,29 @@ def _to_bh(x):
     return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
 
 
+def _from_bh(x, B, H):
+    """(B*H, T, D) -> (B, T, H, D)."""
+    _, T, D = x.shape
+    return x.reshape(B, H, T, D).transpose(1, 2)
+
+
+def _acc_dtype(x) -> torch.dtype:
+    """The plain versions' accumulation type: float32, or float64 for
+    float64 inputs."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _scores(qb, kb, causal: bool, scale: float, acc):
+    """Masked scores (B*H, Tq, Tk) from (B*H, T, D) operands."""
+    s = torch.matmul(qb.to(acc), kb.to(acc).transpose(1, 2)) * scale
+    if causal:
+        Tq, Tk = qb.shape[1], kb.shape[1]
+        qpos = torch.arange(Tq, device=qb.device)[:, None]
+        kpos = torch.arange(Tk, device=qb.device)[None, :]
+        s = s.masked_fill(qpos < kpos, NEG_INF)
+    return s
+
+
 def _kernel_readable(x) -> bool:
     """Whether the kernel can read ``x`` in place: contiguous head dim, and
     every row start 16-byte aligned (its cp.async copies move 16 bytes)."""
@@ -74,44 +120,11 @@ def _kernel_readable(x) -> bool:
             and all((s * esize) % 16 == 0 for s in x.stride()[:3]))
 
 
-def flash_attention_reference(q, k, v, causal: bool = False,
-                              scale: Optional[float] = None):
-    """Plain PyTorch flash-attention forward: (out (B, Tq, H, D) in q.dtype,
-    lse (B*H, Tq) float32). Materializes the (Tq, Tk) scores — the
-    kernel's yardstick for correctness, not for speed."""
-    _check_qkv(q, k, v)
-    B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    qb, kb, vb = _to_bh(q), _to_bh(k), _to_bh(v)
-    s = torch.matmul(qb.float(), kb.float().transpose(1, 2)) * scale
-    if causal:
-        qpos = torch.arange(Tq, device=q.device)[:, None]
-        kpos = torch.arange(Tk, device=q.device)[None, :]
-        s = s.masked_fill(qpos < kpos, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    none = m <= NEG_INF / 2
-    p = torch.where(none, 0.0, torch.exp(s - m))
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), vb.float())
-    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
-    lse = torch.where(none, NEG_INF, m + torch.log(l.clamp_min(1e-30)))[..., 0]
-    return out.reshape(B, H, Tq, D).transpose(1, 2), lse
-
-
-def flash_attention_fwd(q, k, v, causal: bool = False,
-                        scale: Optional[float] = None):
-    """Flash-attention forward: (out (B, Tq, H, D), lse (B*H, Tq) f32).
-
-    CPU tensors run :func:`flash_attention_reference`. CUDA tensors launch
-    the kernel on the current stream; they must be float32 or bfloat16 with
-    head dim 64 or 128, or this raises."""
-    _check_qkv(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+def _check_cuda(q, k, name: str):
+    """What every CUDA kernel here takes; raises on anything else."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
-                         f"not {q.device}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not "
+                         f"{q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, "
                          f"not {q.dtype}")
@@ -124,11 +137,58 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         raise ValueError(f"B*H = {B * H} exceeds the kernel grid's 65535")
     if Tq > 2 ** 31 - 64 or Tk > 2 ** 31 - 64:
         raise ValueError("sequence lengths must fit the kernel's int32")
+
+
+def _readable(*xs):
+    """Each operand as the kernels read it: in place through its strides
+    (the model's qkv split hands over views of one projection), or a packed
+    copy when its rows are not 16-byte aligned."""
+    return tuple(x if _kernel_readable(x) else x.contiguous() for x in xs)
+
+
+def _raise_on(rc: int, lib, what: str):
+    if rc != 0:
+        msg = lib.mmlspark_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {rc} ({msg})")
+
+
+def flash_attention_reference(q, k, v, causal: bool = False,
+                              scale: Optional[float] = None):
+    """Plain PyTorch flash-attention forward: (out (B, Tq, H, D) in q.dtype,
+    lse (B*H, Tq) float32, float64 for float64 inputs). Materializes the
+    (Tq, Tk) scores — the kernel's yardstick for correctness, not for
+    speed."""
+    _check_qkv(q, k, v)
+    B, Tq, H, D = q.shape
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    # the kernel reads each (B, T, H, D) operand in place through its
-    # strides — the model's qkv split hands over views of one projection;
-    # an operand whose rows are not 16-byte aligned runs on a packed copy
-    q, k, v = (x if _kernel_readable(x) else x.contiguous() for x in (q, k, v))
+    acc = _acc_dtype(q)
+    qb, kb, vb = _to_bh(q), _to_bh(k), _to_bh(v)
+    s = _scores(qb, kb, causal, scale, acc)
+    m = s.amax(dim=-1, keepdim=True)
+    none = m <= NEG_INF / 2
+    p = torch.where(none, 0.0, torch.exp(s - m))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).to(acc), vb.to(acc))
+    out = (o / l.clamp_min(1e-30)).to(q.dtype)
+    lse = torch.where(none, NEG_INF, m + torch.log(l.clamp_min(1e-30)))[..., 0]
+    return _from_bh(out, B, H), lse
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None):
+    """Flash-attention forward: (out (B, Tq, H, D), lse (B*H, Tq) f32).
+
+    CPU tensors run :func:`flash_attention_reference`. CUDA tensors launch
+    the kernel on the current stream; they must be float32 or bfloat16 with
+    head dim 64 or 128, or this raises."""
+    _check_qkv(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+    _check_cuda(q, k, "flash_attention_fwd")
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    q, k, v = _readable(q, k, v)
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     from . import _build
@@ -140,10 +200,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
             lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], B, H, Tq, Tk, D, int(bool(causal)),
             float(scale), _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        msg = lib.mmlspark_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_fwd launch failed: "
-                           f"cudaError {rc} ({msg})")
+    _raise_on(rc, lib, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -152,17 +209,147 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd(q, k, v, out, lse, do):
+    _check_qkv(q, k, v)
+    B, Tq, H, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out and dO must be q's shape {tuple(q.shape)}; "
+                         f"got {tuple(out.shape)}, {tuple(do.shape)}")
+    if lse.shape != (B * H, Tq) or lse.dtype != _acc_dtype(q):
+        raise ValueError(f"lse must be {_acc_dtype(q)} (B*H, Tq) = "
+                         f"{(B * H, Tq)}; got {lse.dtype} {tuple(lse.shape)}")
+    if not (q.device == out.device == lse.device == do.device):
+        raise ValueError("q, out, lse and dO on different devices")
+
+
+def _row_dot(do, out):
+    """D = rowsum(dO * O) in float32, as (B*H, Tq): the JAX package takes it
+    in XLA outside its kernels (pallas_kernels.py:282)."""
+    B, Tq, H, _ = do.shape
+    acc = torch.promote_types(_acc_dtype(do), _acc_dtype(out))
+    d = (do.to(acc) * out.to(acc)).sum(-1)               # (B, Tq, H)
+    return d.transpose(1, 2).reshape(B * H, Tq).contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
+                                  scale: Optional[float] = None):
+    """Plain PyTorch flash-attention backward: (dq, dk, dv) in the input
+    types. Materializes P from ``lse`` over the (Tq, Tk) scores (no autograd
+    through the forward) — the kernels' yardstick for correctness, not for
+    speed."""
+    _check_bwd(q, k, v, out, lse, do)
+    B, Tq, H, D = q.shape
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    acc = _acc_dtype(q)
+    do = do.to(q.dtype)
+    qb, kb, vb, dob = _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do)
+    s = _scores(qb, kb, causal, scale, acc)
+    L = lse.to(acc)[..., None]
+    p = torch.where(L <= NEG_INF / 2, 0.0, torch.exp(s - L))
+    dp = torch.matmul(dob.to(acc), vb.to(acc).transpose(1, 2))
+    ds = p * (dp - _row_dot(do, out).to(acc)[..., None])
+    dv = torch.matmul(p.to(do.dtype).to(acc).transpose(1, 2), dob.to(acc))
+    dq = torch.matmul(ds.to(k.dtype).to(acc), kb.to(acc)) * scale
+    dk = torch.matmul(ds.to(q.dtype).to(acc).transpose(1, 2),
+                      qb.to(acc)) * scale
+    return (_from_bh(dq.to(q.dtype), B, H), _from_bh(dk.to(k.dtype), B, H),
+            _from_bh(dv.to(v.dtype), B, H))
+
+
+class _BwdLaunch:
+    """One backward call's operands as the two kernels take them: the
+    tensors (held here, so their memory outlives the launches), the packed
+    C arguments, and the outputs."""
+
+    def __init__(self, q, k, v, out, lse, do, causal, scale):
+        B, Tq, H, D = q.shape
+        Tk = k.shape[1]
+        do = do.to(q.dtype)
+        self.delta = _row_dot(do, out)
+        self.lse = lse.contiguous()
+        # dO from autograd may be any view; it is packed only when unreadable
+        self.q, self.k, self.v, self.do = _readable(q, k, v, do)
+        self.dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+        self.dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+        self.dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+        from . import _build
+        self.lib = _build.load("flash_attention_bwd", _C_FUNCTIONS_BWD)
+        self.device = q.device
+        self.ins = tuple(x.data_ptr() for x in (self.q, self.k, self.v,
+                                                 self.do, self.lse,
+                                                 self.delta))
+        self.shape = (*self.q.stride()[:3], *self.k.stride()[:3],
+                      *self.v.stride()[:3], *self.do.stride()[:3],
+                      B, H, Tq, Tk, D, int(bool(causal)), float(scale),
+                      _DTYPE_CODE[q.dtype])
+
+    def _stream(self):
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def dq_kernel(self):
+        with torch.cuda.device(self.device):
+            rc = self.lib.mmlspark_flash_attention_bwd_dq(
+                *self.ins, self.dq.data_ptr(), *self.shape, self._stream())
+        _raise_on(rc, self.lib, "flash_attention_bwd (dq)")
+        flash_attention_bwd.launches_dq += 1
+
+    def dkv_kernel(self):
+        with torch.cuda.device(self.device):
+            rc = self.lib.mmlspark_flash_attention_bwd_dkv(
+                *self.ins, self.dk.data_ptr(), self.dv.data_ptr(),
+                *self.shape, self._stream())
+        _raise_on(rc, self.lib, "flash_attention_bwd (dk/dv)")
+        flash_attention_bwd.launches_dkv += 1
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        scale: Optional[float] = None):
+    """Flash-attention backward: (dq (B, Tq, H, D), dk, dv (B, Tk, H, D)).
+
+    ``out`` and ``lse`` are the forward's; ``do`` is the gradient of out,
+    cast to q's type. CPU tensors run :func:`flash_attention_bwd_reference`.
+    CUDA tensors launch the dq kernel, then the dk/dv kernel, on the current
+    stream; the kinds of input the forward kernel refuses raise here too."""
+    _check_bwd(q, k, v, out, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                             causal=causal, scale=scale)
+    _check_cuda(q, k, "flash_attention_bwd")
+    scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
+    call = _BwdLaunch(q, k, v, out, lse, do, causal, scale)
+    call.dq_kernel()
+    call.dkv_kernel()
+    return call.dq, call.dk, call.dv
+
+
+#: launches of each backward kernel since the last reset
+flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dkv = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernels paired as forward and backward, as the JAX package pairs
+    them with ``jax.custom_vjp``. Under a non-reentrant checkpoint the
+    forward runs again during the backward, and the backward reads the
+    recomputed ``out`` and ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.to(q.dtype),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None):
-    """FlashAttention forward: q/k/v (B, T, H, D) -> (B, Tq, H, D).
-
-    Forward only: on CUDA, inputs that require a gradient (with grad mode
-    on) raise rather than differentiate through some other path — the
-    backward kernels are slice 2 (ROADMAP.md Queue 2 item 2)."""
-    if (q.device.type == "cuda" and torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        raise NotImplementedError(
-            "flash_attention backward is not ported yet (slice 2, ROADMAP.md "
-            "Queue 2 item 2); run under torch.inference_mode() or no_grad()")
-    out, _ = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    return out
+    """FlashAttention: q/k/v (B, T, H, D) -> (B, Tq, H, D), differentiable
+    (the backward runs the dq and dk/dv kernels on CUDA tensors)."""
+    return _FlashAttention.apply(q, k, v, causal, scale)

@@ -1,1 +1,1 @@
-"""Attention forms of the port (plain PyTorch)."""
+"""Attention forms (plain PyTorch) and the bounded host prefetcher."""

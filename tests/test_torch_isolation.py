@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, json, mmlspark_tpu_torch, "
             "mmlspark_tpu_torch.models.torch_model, "
             "mmlspark_tpu_torch.ops.flash_attention, "
+            "mmlspark_tpu_torch.models.trainer, "
+            "mmlspark_tpu_torch.parallel.prefetch, "
             "mmlspark_tpu_torch.core.serialize; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -83,6 +83,21 @@ def test_encoder_matches_jax(flax_params, tokens, jax_outputs, dtype, layer,
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_parameters_are_float32_masters(flax_params, tokens, dtype):
+    """Every parameter is float32 whatever the compute dtype (flax's
+    param_dtype); the compute dtype shows in the activations."""
+    cfg = dict(CFG, dtype=dtype, remat=True)
+    model = build_model(cfg)
+    model.load_state_dict(from_flax_params(flax_params, cfg))
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    with torch.inference_mode():
+        emb = model(torch.from_numpy(tokens).long(), output_layer="embed")
+    # the tap returns float32; the rows it came from were rounded to dtype
+    rounded = emb.to(getattr(torch, dtype)).float()
+    assert torch.equal(emb, rounded)
+
+
 def test_layer_names_match_jax():
     assert (build_model(CFG).layer_names()
             == jax_build_model(CFG).layer_names())
