@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch port (mmlspark_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py --phases build,kernel_gbdt   # a rehearsal
 
 Phases, each printing one JSON line:
 
 1. build  — compiles every CUDA kernel source in
-   ``mmlspark_tpu_torch/ops/csrc`` (the flash-attention forward and the dq
-   and dk/dv backward) with nvcc for sm_90a into
+   ``mmlspark_tpu_torch/ops/csrc`` (the flash-attention forward, the dq
+   and dk/dv backward, the GBDT histograms and the GBDT predict) with nvcc
+   for sm_90a into
    ``mmlspark_tpu_torch/_build/`` (one nvcc per source, all started
    together), with ptxas' register/spill report for each.
 2. kernel — holds the forward kernel against its plain PyTorch version on
@@ -20,13 +22,22 @@ Phases, each printing one JSON line:
    same cases (per gradient, max |kernel - plain| / max(1, max |plain|)
    and ||kernel - plain||_2 / ||plain||_2), timing each kernel, the wrapper, the plain version and the backward of
    ``scaled_dot_product_attention`` at the slice shape.
-4. slice  — the serving path at full width: a DataFrame of 13 rows x 4096
+4. kernel_gbdt — the node histogram, the fused histogram and the quantized
+   level-wise predict against their plain versions at edge shapes (ragged
+   rows, odd feature counts, 1-64 nodes, out-of-range node ids and bins,
+   16/255/256 bins, combined ids to 64 x 255, the 255 sentinel, K = 3,
+   int8-scaled leaves, tables past shared memory) and at the slice's (1M x
+   28 rows, 16 nodes, 100 trees of depth 5); two launches on the same
+   inputs must give the same bits. Each is timed at the slice shape beside
+   its plain version, its bound and (the histograms) two
+   ``torch.bincount`` calls.
+5. slice  — the serving path at full width: a DataFrame of 13 rows x 4096
    token ids -> ``TorchModel.transform`` (causal TransformerEncoder,
    d_model 512, 4 heads, 4 layers, vocab 32000, bfloat16, random weights
    from a numpy seed) -> scores. The forward kernel's launch count over
    that one transform must be layers x chunks; the scores must be finite
    and match the same model with plain-PyTorch blockwise attention.
-5. train  — the training path at the same width (remat on, bf16 over f32
+6. train  — the training path at the same width (remat on, bf16 over f32
    masters): 32 rows x 4096 tokens with numpy-seeded labels ->
    ``TorchLearner(optimizer="adam", learningRate=1e-3, batchSize=8,
    epochs=2).fit`` -> a TorchModel that serves the slice's rows. Over the
@@ -38,6 +49,19 @@ Phases, each printing one JSON line:
    parameter by parameter. Also one short bf16_mixed fit, step time and
    training tokens/s over epochs 2-4 of a 16-step-per-epoch fit, peak
    memory, and the profile of one step.
+7. gbdt   — the GBDT slice at full size: bench_gbdt.py's 1M x 28 rows ->
+   ``LightGBMClassifier(device="cuda").fit`` with default Params (depthwise
+   to depth 5, 100 trees, maxBin 255) -> ``transform`` with predictImpl
+   auto. The node-histogram kernel must launch 500 times per fit and the
+   predict kernel once per transform; a second fit must give the same
+   bits; the first 10 trees must equal those of the segment-histogram fit
+   (the plain path on the card) and its training log-loss agree within
+   1e-4; a 10-iteration hist_impl="pallas" fit (the fused kernel) must
+   grow the segment fit's trees; the kernel's raw scores must be within
+   1e-3 (relative) of the dense walk's, labels differing only where the
+   margin is within that delta; training accuracy >= 0.85. Prints the
+   warm fit seconds and their parts, ms per iteration, transform rows/s,
+   peak memory and the profile of one boosting iteration.
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -82,6 +106,21 @@ TOL_OUT = {"bfloat16": 2e-2, "float32": 1e-4}
 TOL_BWD_L2 = {"bfloat16": 2e-3, "float32": 2e-6}
 TOL_LSE = 1e-3
 TOL_SLICE = 5e-2
+# the GBDT slice: bench_gbdt.py:15-20 (1M x 28, binary, 100 trees of depth
+# 5, maxBin 255), LightGBMClassifier's defaults on >= 262144 rows
+GBDT_ROWS, GBDT_FEATURES, GBDT_TREES, GBDT_DEPTH = 1_000_000, 28, 100, 5
+GBDT_MAX_BIN = 255
+# the histogram kernels against their plain versions (scatter-adds in
+# another order): |kernel - plain| <= TOL_HIST_ABS + TOL_HIST_REL * |plain|,
+# as tests/test_pallas_kernels.py:212 holds the TPU kernel
+TOL_HIST_REL, TOL_HIST_ABS = 1e-5, 1e-4
+# the predict kernel sums the trees in the plain version's order
+TOL_PREDICT = 1e-6
+# the slice: final training log-loss against the segment-histogram fit;
+# the quantized (bf16-leaf) scores against the dense walk, max |delta| /
+# max |dense| (tests/test_gbdt.py:881-901); training accuracy (the data's
+# Bayes rate is about 0.9)
+TOL_GBDT_LOSS, TOL_GBDT_PREDICT, TOL_GBDT_ACCURACY = 1e-4, 1e-3, 0.85
 
 
 def emit(obj):
@@ -319,6 +358,193 @@ def phase_kernel_bwd(torch):
     return worst, timing
 
 
+def hist_bound(n_rows, n_feat, in_bytes_per_cell, n_out) -> dict:
+    """Least time for one histogram: the bin or id matrix, g and h (and the
+    node ids, counted in ``in_bytes_per_cell`` by the caller) read once, the
+    two float32 outputs written once; two float32 adds per (row, feature)."""
+    return bound(2.0 * n_rows * n_feat,
+                 in_bytes_per_cell * n_rows * n_feat + 8 * n_rows
+                 + 2 * 4 * n_out, "float32")
+
+
+def node_hist_case(torch, gen, F, N, n_nodes, n_bins, oor):
+    """Inputs of mxu_node_histogram on the card: uint8 bins_t (F, N) over all
+    256 values (bins >= n_bins add nothing), node ids in [0, n_nodes), or
+    with ``oor`` also -1 and ids past n_nodes."""
+    bins_t = torch.randint(0, 256 if oor else n_bins, (F, N), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.uint8)
+    lo, hi = (-1, n_nodes + 2) if oor else (0, n_nodes)
+    node = torch.randint(lo, hi, (N,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    g = torch.randn(N, generator=gen, device="cuda")
+    h = torch.rand(N, generator=gen, device="cuda")
+    return bins_t, node, g, h
+
+
+def fused_case(torch, gen, F, N, n_bins, oor):
+    """Inputs of histogram_fused: int32 ids (N, F), with ``oor`` also ids
+    below 0 and past n_bins."""
+    lo, hi = (-2, n_bins + 3) if oor else (0, n_bins)
+    bins = torch.randint(lo, hi, (N, F), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return (bins, torch.randn(N, generator=gen, device="cuda"),
+            torch.rand(N, generator=gen, device="cuda"))
+
+
+def predict_case(torch, gen, T, K, depth, d, n, int8_leaves):
+    """Inputs of gbdt_predict_quant_levelwise: uint8 bins_t (d, n) and
+    tables, the 255 sentinel on every seventh node, bf16-rounded leaves or
+    int8 leaves times a per-tree scale, widened to float32."""
+    nodes = 2 ** depth - 1
+    bins_t = torch.randint(0, 256, (d, n), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+    feat = torch.randint(0, d, (T, K, nodes), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.uint8)
+    thr = torch.randint(0, 256, (T, K, nodes), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    thr.view(-1)[::7] = 255
+    leaf = torch.randn((T, K, 2 ** depth), generator=gen, device="cuda")
+    if int8_leaves:
+        scale = leaf.abs().amax(2, keepdim=True) / 127.0
+        leaf = torch.round(leaf / scale).clamp(-127, 127) * scale
+    else:
+        leaf = leaf.to(torch.bfloat16).float()
+    return bins_t, feat, thr.to(torch.uint8), leaf
+
+
+def phase_kernel_gbdt(torch):
+    """The three GBDT kernels against their plain versions at edge shapes
+    and at the slice's, two launches on the same inputs bit-identical, then
+    timed at the slice shape beside their bound and one library call."""
+    from mmlspark_tpu_torch.ops import gbdt_kernels as gk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    N, F, NB = GBDT_ROWS, GBDT_FEATURES, GBDT_MAX_BIN
+    worst = {"node_hist": 0.0, "fused": 0.0, "predict": 0.0}
+    results = []
+
+    def hold(name, case, got, ref, tol_rel):
+        (g1, h1), (g2, h2), (rg, rh) = got[0], got[1], ref
+        same = torch.equal(g1, g2) and torch.equal(h1, h2)
+        err = max((g1 - rg).abs().max().item(), (h1 - rh).abs().max().item())
+        excess = max(((g1 - rg).abs() - tol_rel * rg.abs()).max().item(),
+                     ((h1 - rh).abs() - tol_rel * rh.abs()).max().item())
+        case.update(kernel=name, max_abs_err=err, bit_identical_repeat=same)
+        results.append(case)
+        check(same, f"{name}: two launches on the same inputs differ {case}")
+        check(excess <= TOL_HIST_ABS,
+              f"{name} disagrees with its plain version: {case}")
+        worst[name] = max(worst[name], err)
+
+    # F x N x n_nodes x n_bins: ragged N, F off every tile, 1..64 nodes,
+    # out-of-range node ids and bins, 16/255/256 bins; last the slice shape
+    for F_, N_, nn, nb, oor in ((5, 333, 3, 16, True),
+                                (13, 77777, 1, 256, True),
+                                (28, 100003, 2, 255, True),
+                                (7, 50001, 16, 255, True),
+                                (3, 12345, 64, 16, True),
+                                (28, 20011, 64, 255, False),
+                                (F, N, 16, NB, False)):
+        args = node_hist_case(torch, gen, F_, N_, nn, nb, oor)
+        got = [gk.mxu_node_histogram(*args, n_nodes=nn, n_bins=nb)
+               for _ in range(2)]
+        ref = gk.node_histogram_reference(*args, n_nodes=nn, n_bins=nb)
+        torch.cuda.synchronize()
+        hold("node_hist", {"F": F_, "N": N_, "n_nodes": nn, "n_bins": nb,
+                           "out_of_range": oor}, got, ref, TOL_HIST_REL)
+    # the fused kernel's ids reach n_nodes * max_bin in the engine
+    for F_, N_, nb, oor in ((5, 333, 16, True), (13, 77777, 255, True),
+                            (28, 100003, 256, True),
+                            (7, 50001, 16 * NB, True),
+                            (3, 12345, 64 * NB, False),
+                            (F, N, 16 * NB, False)):
+        args = fused_case(torch, gen, F_, N_, nb, oor)
+        got = [gk.histogram_fused(*args, n_bins=nb) for _ in range(2)]
+        ref = gk.histogram_fused_reference(*args, n_bins=nb)
+        torch.cuda.synchronize()
+        hold("fused", {"F": F_, "N": N_, "n_bins": nb, "out_of_range": oor},
+             got, ref, TOL_HIST_REL)
+    # T x K x depth x d x n: ragged n and d, K = 3, int8-scaled leaves,
+    # depth 7 over 256 features, tables too large for shared memory (read
+    # from global memory), the 255 sentinel; last the slice shape
+    for T, K, depth, d, n, q8 in ((7, 3, 4, 11, 777, False),
+                                  (7, 3, 4, 11, 777, True),
+                                  (3, 1, 1, 1, 5, False),
+                                  (5, 2, 7, 256, 3001, True),
+                                  (2000, 3, 5, 13, 4099, False),
+                                  (GBDT_TREES, 1, GBDT_DEPTH, F, N, False)):
+        args = predict_case(torch, gen, T, K, depth, d, n, q8)
+        got = [gk.gbdt_predict_quant_levelwise(*args, depth=depth)
+               for _ in range(2)]
+        ref = gk.quant_levelwise_reference(*args, depth=depth)
+        torch.cuda.synchronize()
+        err = (got[0] - ref).abs().max().item()
+        case = {"kernel": "predict", "T": T, "K": K, "depth": depth, "d": d,
+                "n": n, "int8_leaves": q8, "max_abs_err": err,
+                "bit_identical_repeat": torch.equal(got[0], got[1]),
+                "equal_to_plain": torch.equal(got[0], ref)}
+        results.append(case)
+        check(case["bit_identical_repeat"],
+              f"predict: two launches differ {case}")
+        check(got[0].shape == (n, K) and err <= TOL_PREDICT,
+              f"predict kernel disagrees with its plain version: {case}")
+        worst["predict"] = max(worst["predict"], err)
+
+    # timing at the slice shapes (CUDA events, median of 20 after warm-up)
+    timing = {}
+    bins_t, node, g, h = node_hist_case(torch, gen, F, N, 16, NB, False)
+    ids = ((node.long()[None, :] * F
+            + torch.arange(F, device="cuda")[:, None]) * NB
+           + bins_t.long()).reshape(-1)
+    gx, hx = g.expand(F, N).reshape(-1), h.expand(F, N).reshape(-1)
+    size = 16 * F * NB
+    timing["node_hist"] = {
+        "shape": {"F": F, "N": N, "n_nodes": 16, "n_bins": NB},
+        "ms": cuda_ms(torch, lambda: gk.mxu_node_histogram(
+            bins_t, node, g, h, n_nodes=16, n_bins=NB)),
+        "plain_ms": cuda_ms(torch, lambda: gk.node_histogram_reference(
+            bins_t, node, g, h, n_nodes=16, n_bins=NB)),
+        "library_ms": cuda_ms(torch, lambda: (
+            torch.bincount(ids, weights=gx, minlength=size),
+            torch.bincount(ids, weights=hx, minlength=size))),
+        "library": "torch.bincount(ids, weights=g|h), twice",
+        **hist_bound(N, F, 1 + 4.0 / F, size)}
+    del ids, gx, hx
+    bins, g, h = fused_case(torch, gen, F, N, 16 * NB, False)
+    ids = (torch.arange(F, device="cuda") * (16 * NB)
+           + bins.long()).reshape(-1)
+    gx, hx = g[:, None].expand(N, F).reshape(-1), h[:, None].expand(
+        N, F).reshape(-1)
+    timing["fused"] = {
+        "shape": {"N": N, "F": F, "n_bins": 16 * NB},
+        "ms": cuda_ms(torch, lambda: gk.histogram_fused(
+            bins, g, h, n_bins=16 * NB)),
+        "plain_ms": cuda_ms(torch, lambda: gk.histogram_fused_reference(
+            bins, g, h, n_bins=16 * NB)),
+        "library_ms": cuda_ms(torch, lambda: (
+            torch.bincount(ids, weights=gx, minlength=F * 16 * NB),
+            torch.bincount(ids, weights=hx, minlength=F * 16 * NB))),
+        "library": "torch.bincount(ids, weights=g|h), twice",
+        **hist_bound(N, F, 4, F * 16 * NB)}
+    del bins, ids, gx, hx
+    T, D = GBDT_TREES, GBDT_DEPTH
+    bins_t, feat, thr, leaf = predict_case(torch, gen, T, 1, D, F, N, False)
+    table_bytes = T * (2 * (2 ** D - 1) + 4 * 2 ** D)
+    timing["predict"] = {
+        "shape": {"T": T, "K": 1, "depth": D, "d": F, "n": N},
+        "ms": cuda_ms(torch, lambda: gk.gbdt_predict_quant_levelwise(
+            bins_t, feat, thr, leaf, depth=D)),
+        "plain_ms": cuda_ms(torch, lambda: gk.quant_levelwise_reference(
+            bins_t, feat, thr, leaf, depth=D), iters=5),
+        "library_ms": None,
+        "library": "none: no single PyTorch call walks an ensemble",
+        # a compare per level and an add per tree, per row
+        **bound(float(N) * T * (D + 1), F * N + table_bytes + 4 * N,
+                "float32")}
+    emit({"phase": "kernel_gbdt", "cases": results,
+          "max_abs_err": worst, "timing": timing})
+    return worst, timing
+
+
 def slice_params(rng) -> dict:
     """Random weights of SLICE_CFG in the JAX package's flax tree shape
     (GPT-2-style init: normal, std 0.02; LayerNorm scale 1, biases 0)."""
@@ -428,6 +654,199 @@ def phase_slice(torch, env):
           "gpu": env.gpu_name_and_power_limit(),
           "profile_of_one_transform": breakdown})
     return launches
+
+
+def gbdt_data():
+    """bench_gbdt.py:15-20: 1M x 28 standard normal features from numpy
+    seed 0, y = 1[2 x0 + x1 - 0.5 x2 + N(0, 0.5) > 0]."""
+    rng = np.random.default_rng(0)
+    n, d = GBDT_ROWS, GBDT_FEATURES
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    logit = x[:, 0] * 2 + x[:, 1] - x[:, 2] * 0.5 + rng.normal(0, 0.5, n)
+    return x, (logit > 0).astype(np.float32)
+
+
+def gbdt_counts() -> dict:
+    from mmlspark_tpu_torch.ops import gbdt_kernels as gk
+    return {"node_hist": gk.mxu_node_histogram.launches,
+            "fused": gk.histogram_fused.launches,
+            "predict": gk.gbdt_predict_quant_levelwise.launches}
+
+
+def reset_gbdt_counts():
+    from mmlspark_tpu_torch.ops import gbdt_kernels as gk
+    gk.mxu_node_histogram.launches = 0
+    gk.histogram_fused.launches = 0
+    gk.gbdt_predict_quant_levelwise.launches = 0
+
+
+def log_loss(raw, y) -> float:
+    z = raw[:, 0].astype(np.float64)
+    return float(np.mean(np.logaddexp(0.0, z) - y * z))
+
+
+def same_trees(a, b) -> list:
+    """Per tree: feature and threshold arrays equal."""
+    fa, fb = a.feature.cpu(), b.feature.cpu()
+    ta, tb = a.threshold.cpu(), b.threshold.cpu()
+    return [bool((fa[t] == fb[t]).all() and (ta[t] == tb[t]).all())
+            for t in range(min(len(fa), len(fb)))]
+
+
+def phase_gbdt(torch, env, dev="cuda"):
+    """The GBDT slice at full size: bench_gbdt.py's data -> DataFrame ->
+    LightGBMClassifier(device=dev).fit with default Params (depthwise to
+    depth 5 on 1M rows, hist_impl auto = the node-histogram kernel) ->
+    transform with predictImpl auto (the predict kernel). ``dev`` is for
+    rehearsing the phase on the CPU."""
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.models.gbdt import engine, stages
+    x, y = gbdt_data()
+    n, d = x.shape
+    df = DataFrame({"features": x, "label": y})
+    clf = LightGBMClassifier(device=dev)
+    p = clf._engine_params("binary", 1, n_rows=n)
+    check(p.num_leaves == 0 and p.max_depth == GBDT_DEPTH
+          and p.num_iterations == GBDT_TREES and p.max_bin == GBDT_MAX_BIN,
+          f"default Params on {n} rows did not resolve to the slice: {p}")
+
+    t0 = time.perf_counter()
+    first = clf.fit(df)
+    cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_gbdt_counts()
+    t0 = time.perf_counter()
+    model = clf.fit(df)                  # the state's read-back syncs
+    fit_s = time.perf_counter() - t0
+    fit_launches = gbdt_counts()
+    check(fit_launches == {"node_hist": GBDT_TREES * GBDT_DEPTH, "fused": 0,
+                           "predict": 0},
+          f"kernel launches over one fit {fit_launches}, expected "
+          f"{GBDT_TREES * GBDT_DEPTH} node histograms and nothing else")
+    s0, s1 = first.getBoosterState(), model.getBoosterState()
+    check(all(np.array_equal(s0[k], s1[k])
+              for k in ("feature", "threshold", "leaf", "bin_edges", "base")),
+          "two fits of the same data gave different ensembles")
+
+    # the warm fit's parts, each timed alone and synchronised
+    t0 = time.perf_counter()
+    xp, _, _, _ = stages._prepare_fit_features(clf, df)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edges = engine.compute_bin_edges(xp, p.max_bin)
+    bins = engine.bin_data_auto(xp, edges, None, p.max_bin, dev)
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boosted = engine.fit_gbdt(None, y, p, binned=(bins, edges),
+                              device=dev)
+    torch.cuda.synchronize()
+    boost_s = time.perf_counter() - t0
+    check(same_trees(boosted, stages._state_to_ensemble(s1, "binary", dev))
+          == [True] * GBDT_TREES, "the binned fit grew other trees")
+
+    # the plain path on the card: segment scatter-add histograms
+    seg = engine.fit_gbdt(x, y, p._replace(hist_impl="segment"), device=dev)
+    kern = stages._state_to_ensemble(s1, "binary", dev)
+    identical = same_trees(kern, seg)
+    check(all(identical[:10]),
+          f"the first 10 trees differ from the segment fit: {identical[:10]}")
+    loss_kernel = log_loss(engine.predict_raw(kern, x, predict_impl="dense"),
+                           y)
+    loss_segment = log_loss(engine.predict_raw(seg, x, predict_impl="dense"),
+                            y)
+    check(abs(loss_kernel - loss_segment) <= TOL_GBDT_LOSS,
+          f"training log-loss {loss_kernel} vs segment fit {loss_segment}")
+
+    # the v1 fused-histogram kernel (hist_impl="pallas") for 10 iterations
+    reset_gbdt_counts()
+    fused = engine.fit_gbdt(x, y, p._replace(hist_impl="pallas",
+                                             num_iterations=10),
+                             device=dev)
+    torch.cuda.synchronize()
+    fused_launches = gbdt_counts()["fused"]
+    check(fused_launches == 10 * GBDT_DEPTH,
+          f"fused kernel launched {fused_launches} times over 10 iterations")
+    check(all(same_trees(fused, seg)),
+          "the hist_impl='pallas' fit grew other trees than the segment fit")
+
+    # serving: one transform through the predict kernel
+    for _ in range(2):
+        model.transform(df)
+    reset_gbdt_counts()
+    t0 = time.perf_counter()
+    scored = model.transform(df)
+    transform_s = time.perf_counter() - t0
+    predict_launches = gbdt_counts()["predict"]
+    check(predict_launches == 1,
+          f"predict kernel launched {predict_launches} times per transform")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.transform(df)
+        times.append(time.perf_counter() - t0)
+    steady_s = statistics.median(times)
+    raw_k = np.stack(scored.col("rawPrediction"))
+    before = gbdt_counts()["predict"]
+    dense = model.copy().setPredictImpl("dense").transform(df)
+    check(gbdt_counts()["predict"] == before,
+          "the dense transform launched the predict kernel")
+    raw_d = np.stack(dense.col("rawPrediction"))
+    check(raw_k.shape == (n, 1) and bool(np.isfinite(raw_k).all()),
+          f"raw scores: shape {raw_k.shape}")
+    delta = float(np.abs(raw_k - raw_d).max())
+    rel = delta / float(np.abs(raw_d).max())
+    check(rel <= TOL_GBDT_PREDICT,
+          f"kernel raw scores differ from dense by {rel} (relative)")
+    pred_k = np.asarray(scored.col("prediction"))
+    pred_d = np.asarray(dense.col("prediction"))
+    flips = pred_k != pred_d
+    check(bool((np.abs(raw_d[flips, 0]) <= delta).all()),
+          "labels differ on rows whose dense margin exceeds the raw delta")
+    accuracy = float((pred_k == y).mean())
+    check(accuracy >= TOL_GBDT_ACCURACY,
+          f"training accuracy {accuracy} < {TOL_GBDT_ACCURACY}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the profile of one boosting iteration at the fit's shapes
+    bins_t = bins.T.contiguous()
+    raw = torch.full((n, 1), float(s1["base"][0]), device=dev)
+    yj = torch.from_numpy(y).to(dev)
+    ones_n, ones_d = torch.ones(n, device=dev), torch.ones(d, device=dev)
+
+    def step():
+        engine._boost_step_level(
+            bins, bins_t, raw, yj, ones_n, ones_d, p.learning_rate, p.alpha,
+            depth=p.max_depth, n_bins=p.max_bin, lambda_l2=p.lambda_l2,
+            lambda_l1=p.lambda_l1, min_child_weight=p.min_child_weight,
+            min_split_gain=p.min_split_gain, hist_impl="mxu",
+            objective="binary", num_class=1, update_raw=True)
+    step()
+    emit({"phase": "gbdt", "rows": n, "features": d,
+          "params": {"num_iterations": p.num_iterations,
+                     "max_depth": p.max_depth, "max_bin": p.max_bin,
+                     "learning_rate": p.learning_rate,
+                     "lambda_l2": p.lambda_l2, "objective": p.objective},
+          "launches": {"fit": fit_launches, "transform": predict_launches,
+                       "fit_hist_impl_pallas_10_iterations": fused_launches},
+          "cold_fit_s": cold_s, "fit_s": fit_s,
+          "fit_parts_s": {"feature_prep": prep_s, "binning": bin_s,
+                          "boosting": boost_s},
+          "ms_per_iteration": boost_s / GBDT_TREES * 1e3,
+          "identical_trees_vs_segment": sum(identical),
+          "train_log_loss": loss_kernel,
+          "train_log_loss_segment": loss_segment,
+          "transform_s": transform_s, "steady_transform_s": steady_s,
+          "transform_rows_per_s": n / steady_s,
+          "predict_max_abs_delta_vs_dense": delta,
+          "predict_rel_delta_vs_dense": rel,
+          "label_flips_vs_dense": int(flips.sum()),
+          "train_accuracy": accuracy, "peak_mem_gb": peak_gb,
+          "gpu": env.gpu_name_and_power_limit(),
+          "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
+    return {"node_hist": fit_launches["node_hist"], "fused": fused_launches,
+            "predict": predict_launches}
 
 
 def kernel_counts():
@@ -635,7 +1054,46 @@ def phase_train(torch, env):
     return launches
 
 
-def main() -> int:
+def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
+    """One GBDT kernel's entry of the kernels line."""
+    return {"name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/ops/csrc/" + source,
+            "replaces": "mmlspark_tpu/ops/pallas_kernels.py:" + line,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": err, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
+PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
+          "gbdt")
+PHASE_FNS = {
+    "build": phase_build,
+    "kernel": lambda torch, env: phase_kernel(torch),
+    "kernel_bwd": lambda torch, env: phase_kernel_bwd(torch),
+    "kernel_gbdt": lambda torch, env: phase_kernel_gbdt(torch),
+    "slice": phase_slice,
+    "train": phase_train,
+    "gbdt": lambda torch, env: phase_gbdt(torch, env),
+}
+
+
+def phases_from_argv(argv) -> tuple:
+    """``--phases a,b`` runs those phases alone (a rehearsal: it prints no
+    result line); no arguments run every phase."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    names = tuple(n for n in ap.parse_args(argv).phases.split(",") if n)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
+    return names
+
+
+def main(argv=None) -> int:
     try:
         import torch
         from mmlspark_tpu_torch.core import env
@@ -649,11 +1107,20 @@ def main() -> int:
         return 2
     check(env.gpu_name_and_power_limit() is not None,
           "nvidia-smi did not report the card's name and power limit")
+    chosen = phases_from_argv(argv)
+    if chosen != PHASES:
+        # a rehearsal of some phases: their lines, the card, no result
+        for name in chosen:
+            PHASE_FNS[name](torch, env)
+        print(env.gpu_name_and_power_limit(), flush=True)
+        return 0
     phase_build(torch, env)
     worst, timing = phase_kernel(torch)
     bwd_worst, bwd = phase_kernel_bwd(torch)
+    gbdt_worst, gbdt_timing = phase_kernel_gbdt(torch)
     serve_launches = phase_slice(torch, env)
     train = phase_train(torch, env)
+    gbdt = phase_gbdt(torch, env)
     csrc = "mmlspark_tpu_torch/ops/csrc/"
     replaces = "mmlspark_tpu/ops/pallas_kernels.py:"
     emit({"kernels": [
@@ -686,7 +1153,17 @@ def main() -> int:
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["dkv_bound"]["bound_ms"],
          "bound_by": bwd["dkv_bound"]["bound_by"],
-         "library_ms": bwd["library_ms"]}]})
+         "library_ms": bwd["library_ms"]},
+        gbdt_entry("mxu_node_histogram", "gbdt_histogram.cu", "447",
+                   gbdt["node_hist"], {"fit": gbdt["node_hist"]},
+                   gbdt_worst["node_hist"], gbdt_timing["node_hist"]),
+        gbdt_entry("gbdt_predict_quant_levelwise", "gbdt_predict.cu", "585",
+                   gbdt["predict"], {"transform": gbdt["predict"]},
+                   gbdt_worst["predict"], gbdt_timing["predict"]),
+        gbdt_entry("histogram_fused", "gbdt_histogram.cu", "769",
+                   gbdt["fused"],
+                   {"fit_hist_impl_pallas_10_iterations": gbdt["fused"]},
+                   gbdt_worst["fused"], gbdt_timing["fused"])]})
     print(env.gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -695,4 +1172,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,15 +13,25 @@ CUDA flash-attention kernels: the forward
 (``ops/csrc/flash_attention_fwd.cu``) and the dq and dk/dv backward
 (``ops/csrc/flash_attention_bwd.cu``).
 
+Slice 3 adds level-wise gradient-boosted trees: DataFrame of feature vectors
+and labels -> ``LightGBMClassifier.fit`` / ``LightGBMRegressor.fit`` -> a
+model whose ``transform`` scores rows. The node histogram, the v1 fused
+histogram and the quantized ensemble predict are hand-written CUDA kernels
+(``ops/csrc/gbdt_histogram.cu``, ``ops/csrc/gbdt_predict.cu``).
+
 Importing the package stays light: torch loads on first use of
-``TorchModel``, ``TorchLearner`` or ``build_model``.
+``TorchModel``, ``TorchLearner``, ``build_model`` or a LightGBM stage.
 """
 
 from .core.dataframe import DataFrame
 from .core.pipeline import Pipeline, PipelineModel
 
-__all__ = ["DataFrame", "Pipeline", "PipelineModel", "TorchLearner",
-           "TorchModel", "build_model"]
+__all__ = ["DataFrame", "LightGBMClassificationModel", "LightGBMClassifier",
+           "LightGBMRegressionModel", "LightGBMRegressor", "Pipeline",
+           "PipelineModel", "TorchLearner", "TorchModel", "build_model"]
+
+_GBDT_STAGES = ("LightGBMClassifier", "LightGBMClassificationModel",
+                "LightGBMRegressor", "LightGBMRegressionModel")
 
 
 def __getattr__(name):
@@ -34,4 +44,7 @@ def __getattr__(name):
     if name == "build_model":
         from .models.modules import build_model
         return build_model
+    if name in _GBDT_STAGES:
+        from .models.gbdt import stages
+        return getattr(stages, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

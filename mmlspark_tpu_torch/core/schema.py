@@ -1,13 +1,19 @@
-"""Image-column conventions the model input path needs.
+"""Column metadata conventions: the PyTorch port's subset of
+``mmlspark_tpu/core/schema.py``.
 
-The PyTorch port's subset of ``mmlspark_tpu/core/schema.py``: image rows are
-structs (reference: src/core/schema/src/main/scala/ImageSchema.scala:11-22)
-and a column is an image column when its metadata says so or its cells carry
-every ImageSchema field. Categorical and score-column tagging come with the
-stages that use them.
+* image rows are structs (reference:
+  src/core/schema/src/main/scala/ImageSchema.scala:11-22), and a column is
+  an image column when its metadata says so or its cells carry every
+  ImageSchema field;
+* categorical levels ride in column metadata under ``MML_TAG`` (reference:
+  Categoricals.scala:16-60);
+* score columns are tagged by role, so evaluators find scores and labels
+  without their names (reference: SparkSchema.scala:13-80).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -32,3 +38,85 @@ def is_image_column(df: DataFrame, name: str) -> bool:
     if col.dtype.kind == "O" and len(col) and isinstance(col[0], dict):
         return set(IMAGE_FIELDS).issubset(col[0].keys())
     return False
+
+
+class CategoricalUtilities:
+    """Store/retrieve categorical level arrays on column metadata."""
+
+    @staticmethod
+    def setLevels(df: DataFrame, column: str, levels: Sequence,
+                  ordinal: bool = False) -> DataFrame:
+        md = df.metadata(column)
+        md.setdefault(MML_TAG, {})["categorical"] = {
+            "levels": list(levels), "ordinal": bool(ordinal)}
+        return df.withMetadata(column, md)
+
+    @staticmethod
+    def getLevels(df: DataFrame, column: str) -> Optional[list]:
+        cat = df.metadata(column).get(MML_TAG, {}).get("categorical")
+        return None if cat is None else list(cat["levels"])
+
+    @staticmethod
+    def isCategorical(df: DataFrame, column: str) -> bool:
+        return "categorical" in df.metadata(column).get(MML_TAG, {})
+
+
+class SchemaConstants:
+    ScoresColumnKind = "scores"
+    ScoredLabelsColumnKind = "scored_labels"
+    ScoredProbabilitiesColumnKind = "scored_probabilities"
+    TrueLabelsColumnKind = "true_labels"
+    ClassificationKind = "classification"
+    RegressionKind = "regression"
+
+
+class SparkSchema:
+    """Role-tagging helpers (reference: SparkSchema.scala:13-80)."""
+
+    @staticmethod
+    def setColumnKind(df: DataFrame, column: str, kind: str,
+                      model_kind: Optional[str] = None) -> DataFrame:
+        md = df.metadata(column)
+        tag = md.setdefault(MML_TAG, {})
+        tag["kind"] = kind
+        if model_kind is not None:
+            tag["model_kind"] = model_kind
+        return df.withMetadata(column, md)
+
+    @staticmethod
+    def clearColumnKind(df: DataFrame, column: str) -> DataFrame:
+        md = df.metadata(column)
+        md.get(MML_TAG, {}).pop("kind", None)
+        return df.withMetadata(column, md)
+
+    @staticmethod
+    def getColumnKind(df: DataFrame, column: str) -> Optional[str]:
+        return df.metadata(column).get(MML_TAG, {}).get("kind")
+
+    @staticmethod
+    def findColumnByKind(df: DataFrame, kind: str) -> Optional[str]:
+        for c in df.columns:
+            if SparkSchema.getColumnKind(df, c) == kind:
+                return c
+        return None
+
+    @staticmethod
+    def setLabelColumnName(df, column, model_kind=None):
+        return SparkSchema.setColumnKind(
+            df, column, SchemaConstants.TrueLabelsColumnKind, model_kind)
+
+    @staticmethod
+    def setScoresColumnName(df, column, model_kind=None):
+        return SparkSchema.setColumnKind(
+            df, column, SchemaConstants.ScoresColumnKind, model_kind)
+
+    @staticmethod
+    def setScoredLabelsColumnName(df, column, model_kind=None):
+        return SparkSchema.setColumnKind(
+            df, column, SchemaConstants.ScoredLabelsColumnKind, model_kind)
+
+    @staticmethod
+    def setScoredProbabilitiesColumnName(df, column, model_kind=None):
+        return SparkSchema.setColumnKind(
+            df, column, SchemaConstants.ScoredProbabilitiesColumnKind,
+            model_kind)

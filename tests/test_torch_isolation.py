@@ -42,6 +42,8 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.ops.flash_attention, "
             "mmlspark_tpu_torch.models.trainer, "
             "mmlspark_tpu_torch.parallel.prefetch, "
+            "mmlspark_tpu_torch.models.gbdt, "
+            "mmlspark_tpu_torch.ops.gbdt_kernels, "
             "mmlspark_tpu_torch.core.serialize; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
