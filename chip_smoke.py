@@ -8,7 +8,7 @@ Phases, each printing one JSON line:
 
 1. build  — compiles every CUDA kernel source in
    ``mmlspark_tpu_torch/ops/csrc`` (the flash-attention forward, the dq
-   and dk/dv backward, the GBDT histograms and the GBDT predict) with nvcc
+   and dk/dv backward, the GBDT histograms and the GBDT predicts) with nvcc
    for sm_90a into
    ``mmlspark_tpu_torch/_build/`` (one nvcc per source, all started
    together), with ptxas' register/spill report for each.
@@ -23,14 +23,15 @@ Phases, each printing one JSON line:
    and ||kernel - plain||_2 / ||plain||_2), timing each kernel, the wrapper, the plain version and the backward of
    ``scaled_dot_product_attention`` at the slice shape.
 4. kernel_gbdt — the node histogram, the fused histogram and the quantized
-   level-wise predict against their plain versions at edge shapes (ragged
-   rows, odd feature counts, 1-64 nodes, out-of-range node ids and bins,
-   16/255/256 bins, combined ids to 64 x 255, the 255 sentinel, K = 3,
-   int8-scaled leaves, tables past shared memory) and at the slice's (1M x
-   28 rows, 16 nodes, 100 trees of depth 5); two launches on the same
-   inputs must give the same bits. Each is timed at the slice shape beside
-   its plain version, its bound and (the histograms) two
-   ``torch.bincount`` calls.
+   level-wise and leaf-wise predicts against their plain versions at edge
+   shapes (ragged rows, odd feature counts, 1-64 nodes, out-of-range node
+   ids and bins, 16/255/256 bins, combined ids to 64 x 255, the 255
+   sentinel, K = 3, int8-scaled leaves, tables past shared memory; leaf-wise
+   also -1 no-op rounds, a tree that stops at round 0 and R = 127 rounds)
+   and at the slices' (1M x 28 rows, 16 nodes, 100 trees of depth 5, 100
+   leaf-wise trees of 30 rounds); two launches on the same inputs must give
+   the same bits. Each is timed at the slice shape beside its plain
+   version, its bound and (the histograms) two ``torch.bincount`` calls.
 5. slice  — the serving path at full width: a DataFrame of 13 rows x 4096
    token ids -> ``TorchModel.transform`` (causal TransformerEncoder,
    d_model 512, 4 heads, 4 layers, vocab 32000, bfloat16, random weights
@@ -62,6 +63,26 @@ Phases, each printing one JSON line:
    margin is within that delta; training accuracy >= 0.85. Prints the
    warm fit seconds and their parts, ms per iteration, transform rows/s,
    peak memory and the profile of one boosting iteration.
+
+8. gbdt_leafwise — the leaf-wise GBDT slice on the same 1M x 28 rows:
+   ``LightGBMClassifier(device="cuda").setGrowthPolicy("leafwise")`` (31
+   leaves best-first, maxDepth 0, 100 trees, maxBin 255: native LightGBM's
+   defaults) -> ``transform`` with predictImpl auto. The node histogram
+   must launch 31 x 100 times per fit (3 ids a round) and the leaf-wise
+   predict kernel not at all, then once per transform; two fits give the
+   same bits; the first 10 trees equal those of the segment-histogram fit
+   and the training log-loss agrees within 1e-4; the kernel's raw scores
+   within 1e-3 (relative) of the dense replay, labels differing only where
+   the margin is within that delta; training accuracy >= 0.85. Prints the
+   same timings as ``gbdt``.
+9. gbdt_efb — bench_efb.py's configuration: 200k rows x 2^16 hashed sparse
+   columns (zipf 1.3, 24 per row, plus a signal token) ->
+   ``LightGBMClassifier(numIterations=20, maxDenseFeatures=512)`` with
+   default Params (leaf-wise through auto below 262144 rows): the tail
+   columns bundle into categorical composites that reach the fit, the node
+   histogram launches 31 x 20 times, two fits give the same bits, the
+   transform takes the dense replay (no predict launch), training accuracy
+   >= 0.95.
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -121,6 +142,15 @@ TOL_PREDICT = 1e-6
 # max |dense| (tests/test_gbdt.py:881-901); training accuracy (the data's
 # Bayes rate is about 0.9)
 TOL_GBDT_LOSS, TOL_GBDT_PREDICT, TOL_GBDT_ACCURACY = 1e-4, 1e-3, 0.85
+# the leaf-wise slice: LightGBM's defaults (numLeaves 31, maxDepth 0)
+GBDT_LEAVES = 31
+# bench_efb.py: 200k x 2^16 hashed sparse rows, 20 iterations, the 512
+# densest columns numeric and the tail bundled (EFB)
+EFB_ROWS, EFB_COLS, EFB_NNZ, EFB_ITERS, EFB_DENSE = 200_000, 1 << 16, 24, 20, 512
+# the width that fit gives the node histogram: 512 dense columns beside the
+# 203 bundles EFB plans on that data
+EFB_FIT_FEATURES = 715
+TOL_EFB_ACCURACY = 0.95
 
 
 def emit(obj):
@@ -412,14 +442,41 @@ def predict_case(torch, gen, T, K, depth, d, n, int8_leaves):
     return bins_t, feat, thr.to(torch.uint8), leaf
 
 
+def lw_predict_case(torch, gen, T, K, R, d, n, int8_leaves):
+    """Inputs of gbdt_predict_quant_leafwise: uint8 bins_t (d, n); round r
+    splits a leaf in [0, r]; every fifth tree stops after 5 rounds (-1
+    no-op rounds after), tree 0 of class 0 at round 0; the 255 sentinel on
+    every seventh round; bf16-rounded or int8-scaled leaves."""
+    bins_t = torch.randint(0, 256, (d, n), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+    rounds = torch.arange(R, device="cuda") + 1
+    split = (torch.rand((T, K, R), generator=gen, device="cuda")
+             * rounds).floor().to(torch.int32)
+    split[::5, :, 5:] = -1
+    split[0, 0, :] = -1
+    feat = torch.randint(0, d, (T, K, R), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.uint8)
+    thr = torch.randint(0, 256, (T, K, R), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    thr.view(-1)[::7] = 255
+    leaf = torch.randn((T, K, R + 1), generator=gen, device="cuda")
+    if int8_leaves:
+        scale = leaf.abs().amax(2, keepdim=True) / 127.0
+        leaf = torch.round(leaf / scale).clamp(-127, 127) * scale
+    else:
+        leaf = leaf.to(torch.bfloat16).float()
+    return bins_t, split, feat, thr.to(torch.uint8), leaf
+
+
 def phase_kernel_gbdt(torch):
-    """The three GBDT kernels against their plain versions at edge shapes
-    and at the slice's, two launches on the same inputs bit-identical, then
+    """The four GBDT kernels against their plain versions at edge shapes
+    and at the slices', two launches on the same inputs bit-identical, then
     timed at the slice shape beside their bound and one library call."""
     from mmlspark_tpu_torch.ops import gbdt_kernels as gk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     N, F, NB = GBDT_ROWS, GBDT_FEATURES, GBDT_MAX_BIN
-    worst = {"node_hist": 0.0, "fused": 0.0, "predict": 0.0}
+    worst = {"node_hist": 0.0, "fused": 0.0, "predict": 0.0,
+             "predict_lw": 0.0}
     results = []
 
     def hold(name, case, got, ref, tol_rel):
@@ -436,14 +493,17 @@ def phase_kernel_gbdt(torch):
         worst[name] = max(worst[name], err)
 
     # F x N x n_nodes x n_bins: ragged N, F off every tile, 1..64 nodes,
-    # out-of-range node ids and bins, 16/255/256 bins; last the slice shape
+    # out-of-range node ids and bins, 16/255/256 bins; last the paths'
+    # shapes: level-wise (16 nodes), leaf-wise (3 ids a round) and EFB
     for F_, N_, nn, nb, oor in ((5, 333, 3, 16, True),
                                 (13, 77777, 1, 256, True),
                                 (28, 100003, 2, 255, True),
                                 (7, 50001, 16, 255, True),
                                 (3, 12345, 64, 16, True),
                                 (28, 20011, 64, 255, False),
-                                (F, N, 16, NB, False)):
+                                (F, N, 16, NB, False),
+                                (F, N, 3, NB, False),
+                                (EFB_FIT_FEATURES, EFB_ROWS, 3, NB, False)):
         args = node_hist_case(torch, gen, F_, N_, nn, nb, oor)
         got = [gk.mxu_node_histogram(*args, n_nodes=nn, n_bins=nb)
                for _ in range(2)]
@@ -488,6 +548,31 @@ def phase_kernel_gbdt(torch):
         check(got[0].shape == (n, K) and err <= TOL_PREDICT,
               f"predict kernel disagrees with its plain version: {case}")
         worst["predict"] = max(worst["predict"], err)
+    # T x K x R x d x n: ragged n and odd d, K = 3, int8-scaled leaves, R =
+    # 127 rounds (the cap) over 256 features, tables too large for shared
+    # memory, a one-round tree; last the leaf-wise slice shape
+    for T, K, R, d, n, q8 in ((7, 3, 9, 11, 777, False),
+                              (7, 3, 9, 11, 777, True),
+                              (3, 1, 1, 1, 5, False),
+                              (5, 2, 127, 256, 3001, True),
+                              (2000, 3, GBDT_LEAVES - 1, 13, 4099, False),
+                              (GBDT_TREES, 1, GBDT_LEAVES - 1, F, N, False)):
+        args = lw_predict_case(torch, gen, T, K, R, d, n, q8)
+        got = [gk.gbdt_predict_quant_leafwise(*args) for _ in range(2)]
+        ref = gk.quant_leafwise_reference(*args)
+        torch.cuda.synchronize()
+        err = (got[0] - ref).abs().max().item()
+        case = {"kernel": "predict_lw", "T": T, "K": K, "R": R, "d": d,
+                "n": n, "int8_leaves": q8, "max_abs_err": err,
+                "bit_identical_repeat": torch.equal(got[0], got[1]),
+                "equal_to_plain": torch.equal(got[0], ref)}
+        results.append(case)
+        check(case["bit_identical_repeat"],
+              f"leaf-wise predict: two launches differ {case}")
+        check(got[0].shape == (n, K) and err <= TOL_PREDICT,
+              f"leaf-wise predict kernel disagrees with its plain version: "
+              f"{case}")
+        worst["predict_lw"] = max(worst["predict_lw"], err)
 
     # timing at the slice shapes (CUDA events, median of 20 after warm-up)
     timing = {}
@@ -539,6 +624,20 @@ def phase_kernel_gbdt(torch):
         "library": "none: no single PyTorch call walks an ensemble",
         # a compare per level and an add per tree, per row
         **bound(float(N) * T * (D + 1), F * N + table_bytes + 4 * N,
+                "float32")}
+    R = GBDT_LEAVES - 1
+    args = lw_predict_case(torch, gen, T, 1, R, F, N, False)
+    lw_table_bytes = T * (4 * R + 2 * R + 4 * (R + 1))
+    timing["predict_lw"] = {
+        "shape": {"T": T, "K": 1, "R": R, "d": F, "n": N},
+        "ms": cuda_ms(torch, lambda: gk.gbdt_predict_quant_leafwise(*args)),
+        "plain_ms": cuda_ms(torch, lambda: gk.quant_leafwise_reference(
+            *args), iters=3, warmup=1),
+        "library_ms": None,
+        "library": "none: no single PyTorch call replays an ensemble",
+        # a compare-select per (row, tree, round) and an add per (row,
+        # tree); the bins read once, the tables once, the output written
+        **bound(float(N) * T * (R + 1), F * N + lw_table_bytes + 4 * N,
                 "float32")}
     emit({"phase": "kernel_gbdt", "cases": results,
           "max_abs_err": worst, "timing": timing})
@@ -670,7 +769,8 @@ def gbdt_counts() -> dict:
     from mmlspark_tpu_torch.ops import gbdt_kernels as gk
     return {"node_hist": gk.mxu_node_histogram.launches,
             "fused": gk.histogram_fused.launches,
-            "predict": gk.gbdt_predict_quant_levelwise.launches}
+            "predict": gk.gbdt_predict_quant_levelwise.launches,
+            "predict_lw": gk.gbdt_predict_quant_leafwise.launches}
 
 
 def reset_gbdt_counts():
@@ -678,6 +778,7 @@ def reset_gbdt_counts():
     gk.mxu_node_histogram.launches = 0
     gk.histogram_fused.launches = 0
     gk.gbdt_predict_quant_levelwise.launches = 0
+    gk.gbdt_predict_quant_leafwise.launches = 0
 
 
 def log_loss(raw, y) -> float:
@@ -691,6 +792,140 @@ def same_trees(a, b) -> list:
     ta, tb = a.threshold.cpu(), b.threshold.cpu()
     return [bool((fa[t] == fb[t]).all() and (ta[t] == tb[t]).all())
             for t in range(min(len(fa), len(fb)))]
+
+
+def same_trees_lw(a, b) -> list:
+    """Per leaf-wise tree: split_leaf, feature, threshold, is_cat and
+    cat_bitset equal."""
+    pairs = [(x.cpu(), y.cpu()) for x, y in (
+        (a.split_leaf, b.split_leaf), (a.feature, b.feature),
+        (a.threshold, b.threshold), (a.is_cat, b.is_cat),
+        (a.cat_bitset, b.cat_bitset))]
+    return [all(bool((x[t] == y[t]).all()) for x, y in pairs)
+            for t in range(min(len(a.feature), len(b.feature)))]
+
+
+def same_state(s0, s1) -> bool:
+    return s0.keys() == s1.keys() and all(
+        np.array_equal(np.asarray(s0[k]), np.asarray(s1[k])) for k in s0)
+
+
+def warm_fit(torch, clf, df, want: dict, what: str):
+    """A first fit, then a timed warm one whose kernel launches must equal
+    ``want`` and whose ensemble must be the first's, bit for bit. Returns
+    (model, first_s, fit_s, launches)."""
+    t0 = time.perf_counter()
+    first = clf.fit(df)
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_gbdt_counts()
+    t0 = time.perf_counter()
+    model = clf.fit(df)                  # the state's read-back syncs
+    fit_s = time.perf_counter() - t0
+    launches = gbdt_counts()
+    check(launches == want,
+          f"kernel launches over one {what} fit {launches}, expected {want}")
+    check(same_state(first.getBoosterState(), model.getBoosterState()),
+          f"two {what} fits of the same data gave different ensembles")
+    return model, first_s, fit_s, launches
+
+
+def fit_parts(torch, clf, df, p, y, same, kern, dev):
+    """The warm fit's parts, each timed alone and synchronised: feature
+    prep, binning, boosting on the binned matrix, whose trees must be
+    ``kern``'s. Returns (bins, seconds by part)."""
+    from mmlspark_tpu_torch.models.gbdt import engine, stages
+    t0 = time.perf_counter()
+    xp, _, _, _ = stages._prepare_fit_features(clf, df)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edges = engine.compute_bin_edges(xp, p.max_bin)
+    bins = engine.bin_data_auto(xp, edges, None, p.max_bin, dev)
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boosted = engine.fit_gbdt(None, y, p, binned=(bins, edges), device=dev)
+    torch.cuda.synchronize()
+    boost_s = time.perf_counter() - t0
+    check(same(boosted, kern) == [True] * GBDT_TREES,
+          "the binned fit grew other trees")
+    return bins, {"feature_prep": prep_s, "binning": bin_s,
+                  "boosting": boost_s}
+
+
+def check_vs_segment(same, kern, x, y, p, dev):
+    """The plain path on the card: the segment scatter-add fit's first 10
+    trees must be ``kern``'s and its training log-loss within
+    TOL_GBDT_LOSS. Returns (segment ensemble, per-tree equality, the two
+    losses)."""
+    from mmlspark_tpu_torch.models.gbdt import engine
+    seg = engine.fit_gbdt(x, y, p._replace(hist_impl="segment"), device=dev)
+    identical = same(kern, seg)
+    if not all(identical[:10]):
+        t = identical.index(False)
+        fields = [f for f in ("split_leaf", "feature", "threshold", "is_cat")
+                  if hasattr(kern, f)]
+        diff = {f: [getattr(e, f)[t].cpu().ravel().tolist()
+                    for e in (kern, seg)] for f in fields}
+        check(False, f"the first 10 trees differ from the segment fit: "
+                     f"{identical[:10]}; tree {t} (card, segment): {diff}")
+    losses = [log_loss(engine.predict_raw(e, x, predict_impl="dense"), y)
+              for e in (kern, seg)]
+    check(abs(losses[0] - losses[1]) <= TOL_GBDT_LOSS,
+          f"training log-loss {losses[0]} vs segment fit {losses[1]}")
+    return seg, identical, losses
+
+
+def check_transform(model, df, y, kernel: str) -> dict:
+    """Serving: after two warm-up transforms one transform must launch the
+    predict ``kernel`` once and nothing else, the dense transform none;
+    the kernel's raw scores within TOL_GBDT_PREDICT (relative) of the dense
+    path's, labels differing only where the dense margin is within that
+    delta, training accuracy >= TOL_GBDT_ACCURACY. Returns the phase's
+    serving fields."""
+    for _ in range(2):
+        model.transform(df)
+    reset_gbdt_counts()
+    t0 = time.perf_counter()
+    scored = model.transform(df)
+    transform_s = time.perf_counter() - t0
+    launches = gbdt_counts()
+    want = {k: int(k == kernel) for k in launches}
+    check(launches == want,
+          f"launches per transform {launches}, expected {want}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.transform(df)
+        times.append(time.perf_counter() - t0)
+    steady_s = statistics.median(times)
+    raw_k = np.stack(scored.col("rawPrediction"))
+    reset_gbdt_counts()
+    dense = model.copy().setPredictImpl("dense").transform(df)
+    check(sum(gbdt_counts().values()) == 0,
+          "the dense transform launched a GBDT kernel")
+    raw_d = np.stack(dense.col("rawPrediction"))
+    check(raw_k.shape == (len(y), 1) and bool(np.isfinite(raw_k).all()),
+          f"raw scores: shape {raw_k.shape}")
+    delta = float(np.abs(raw_k - raw_d).max())
+    rel = delta / float(np.abs(raw_d).max())
+    check(rel <= TOL_GBDT_PREDICT,
+          f"kernel raw scores differ from dense by {rel} (relative)")
+    pred_k = np.asarray(scored.col("prediction"))
+    flips = pred_k != np.asarray(dense.col("prediction"))
+    check(bool((np.abs(raw_d[flips, 0]) <= delta).all()),
+          "labels differ on rows whose dense margin exceeds the raw delta")
+    accuracy = float((pred_k == y).mean())
+    check(accuracy >= TOL_GBDT_ACCURACY,
+          f"training accuracy {accuracy} < {TOL_GBDT_ACCURACY}")
+    return {"transform_launches": launches[kernel],
+            "transform_s": transform_s, "steady_transform_s": steady_s,
+            "transform_rows_per_s": len(y) / steady_s,
+            "predict_max_abs_delta_vs_dense": delta,
+            "predict_rel_delta_vs_dense": rel,
+            "label_flips_vs_dense": int(flips.sum()),
+            "train_accuracy": accuracy}
 
 
 def phase_gbdt(torch, env, dev="cuda"):
@@ -709,55 +944,14 @@ def phase_gbdt(torch, env, dev="cuda"):
     check(p.num_leaves == 0 and p.max_depth == GBDT_DEPTH
           and p.num_iterations == GBDT_TREES and p.max_bin == GBDT_MAX_BIN,
           f"default Params on {n} rows did not resolve to the slice: {p}")
-
-    t0 = time.perf_counter()
-    first = clf.fit(df)
-    cold_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_gbdt_counts()
-    t0 = time.perf_counter()
-    model = clf.fit(df)                  # the state's read-back syncs
-    fit_s = time.perf_counter() - t0
-    fit_launches = gbdt_counts()
-    check(fit_launches == {"node_hist": GBDT_TREES * GBDT_DEPTH, "fused": 0,
-                           "predict": 0},
-          f"kernel launches over one fit {fit_launches}, expected "
-          f"{GBDT_TREES * GBDT_DEPTH} node histograms and nothing else")
-    s0, s1 = first.getBoosterState(), model.getBoosterState()
-    check(all(np.array_equal(s0[k], s1[k])
-              for k in ("feature", "threshold", "leaf", "bin_edges", "base")),
-          "two fits of the same data gave different ensembles")
-
-    # the warm fit's parts, each timed alone and synchronised
-    t0 = time.perf_counter()
-    xp, _, _, _ = stages._prepare_fit_features(clf, df)
-    prep_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    edges = engine.compute_bin_edges(xp, p.max_bin)
-    bins = engine.bin_data_auto(xp, edges, None, p.max_bin, dev)
-    torch.cuda.synchronize()
-    bin_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    boosted = engine.fit_gbdt(None, y, p, binned=(bins, edges),
-                              device=dev)
-    torch.cuda.synchronize()
-    boost_s = time.perf_counter() - t0
-    check(same_trees(boosted, stages._state_to_ensemble(s1, "binary", dev))
-          == [True] * GBDT_TREES, "the binned fit grew other trees")
-
-    # the plain path on the card: segment scatter-add histograms
-    seg = engine.fit_gbdt(x, y, p._replace(hist_impl="segment"), device=dev)
+    model, cold_s, fit_s, fit_launches = warm_fit(
+        torch, clf, df, {"node_hist": GBDT_TREES * GBDT_DEPTH, "fused": 0,
+                         "predict": 0, "predict_lw": 0}, "level-wise")
+    s1 = model.getBoosterState()
     kern = stages._state_to_ensemble(s1, "binary", dev)
-    identical = same_trees(kern, seg)
-    check(all(identical[:10]),
-          f"the first 10 trees differ from the segment fit: {identical[:10]}")
-    loss_kernel = log_loss(engine.predict_raw(kern, x, predict_impl="dense"),
-                           y)
-    loss_segment = log_loss(engine.predict_raw(seg, x, predict_impl="dense"),
-                            y)
-    check(abs(loss_kernel - loss_segment) <= TOL_GBDT_LOSS,
-          f"training log-loss {loss_kernel} vs segment fit {loss_segment}")
+    bins, parts = fit_parts(torch, clf, df, p, y, same_trees, kern, dev)
+    seg, identical, losses = check_vs_segment(same_trees, kern, x, y, p,
+                                              dev)
 
     # the v1 fused-histogram kernel (hist_impl="pallas") for 10 iterations
     reset_gbdt_counts()
@@ -771,42 +965,7 @@ def phase_gbdt(torch, env, dev="cuda"):
     check(all(same_trees(fused, seg)),
           "the hist_impl='pallas' fit grew other trees than the segment fit")
 
-    # serving: one transform through the predict kernel
-    for _ in range(2):
-        model.transform(df)
-    reset_gbdt_counts()
-    t0 = time.perf_counter()
-    scored = model.transform(df)
-    transform_s = time.perf_counter() - t0
-    predict_launches = gbdt_counts()["predict"]
-    check(predict_launches == 1,
-          f"predict kernel launched {predict_launches} times per transform")
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        model.transform(df)
-        times.append(time.perf_counter() - t0)
-    steady_s = statistics.median(times)
-    raw_k = np.stack(scored.col("rawPrediction"))
-    before = gbdt_counts()["predict"]
-    dense = model.copy().setPredictImpl("dense").transform(df)
-    check(gbdt_counts()["predict"] == before,
-          "the dense transform launched the predict kernel")
-    raw_d = np.stack(dense.col("rawPrediction"))
-    check(raw_k.shape == (n, 1) and bool(np.isfinite(raw_k).all()),
-          f"raw scores: shape {raw_k.shape}")
-    delta = float(np.abs(raw_k - raw_d).max())
-    rel = delta / float(np.abs(raw_d).max())
-    check(rel <= TOL_GBDT_PREDICT,
-          f"kernel raw scores differ from dense by {rel} (relative)")
-    pred_k = np.asarray(scored.col("prediction"))
-    pred_d = np.asarray(dense.col("prediction"))
-    flips = pred_k != pred_d
-    check(bool((np.abs(raw_d[flips, 0]) <= delta).all()),
-          "labels differ on rows whose dense margin exceeds the raw delta")
-    accuracy = float((pred_k == y).mean())
-    check(accuracy >= TOL_GBDT_ACCURACY,
-          f"training accuracy {accuracy} < {TOL_GBDT_ACCURACY}")
+    serving = check_transform(model, df, y, "predict")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the profile of one boosting iteration at the fit's shapes
@@ -828,25 +987,175 @@ def phase_gbdt(torch, env, dev="cuda"):
                      "max_depth": p.max_depth, "max_bin": p.max_bin,
                      "learning_rate": p.learning_rate,
                      "lambda_l2": p.lambda_l2, "objective": p.objective},
-          "launches": {"fit": fit_launches, "transform": predict_launches,
+          "launches": {"fit": fit_launches,
+                       "transform": serving["transform_launches"],
                        "fit_hist_impl_pallas_10_iterations": fused_launches},
-          "cold_fit_s": cold_s, "fit_s": fit_s,
-          "fit_parts_s": {"feature_prep": prep_s, "binning": bin_s,
-                          "boosting": boost_s},
-          "ms_per_iteration": boost_s / GBDT_TREES * 1e3,
+          "cold_fit_s": cold_s, "fit_s": fit_s, "fit_parts_s": parts,
+          "ms_per_iteration": parts["boosting"] / GBDT_TREES * 1e3,
           "identical_trees_vs_segment": sum(identical),
-          "train_log_loss": loss_kernel,
-          "train_log_loss_segment": loss_segment,
-          "transform_s": transform_s, "steady_transform_s": steady_s,
-          "transform_rows_per_s": n / steady_s,
-          "predict_max_abs_delta_vs_dense": delta,
-          "predict_rel_delta_vs_dense": rel,
-          "label_flips_vs_dense": int(flips.sum()),
-          "train_accuracy": accuracy, "peak_mem_gb": peak_gb,
+          "train_log_loss": losses[0], "train_log_loss_segment": losses[1],
+          **serving, "peak_mem_gb": peak_gb,
           "gpu": env.gpu_name_and_power_limit(),
           "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
     return {"node_hist": fit_launches["node_hist"], "fused": fused_launches,
-            "predict": predict_launches}
+            "predict": serving["transform_launches"]}
+
+
+def phase_gbdt_leafwise(torch, env, dev="cuda"):
+    """The leaf-wise GBDT slice at full size: bench_gbdt.py's data ->
+    LightGBMClassifier(device=dev).setGrowthPolicy("leafwise").fit (31
+    leaves best-first, the node-histogram kernel with 3 ids a round) ->
+    transform with predictImpl auto (the leaf-wise predict kernel). ``dev``
+    is for rehearsing the phase on the CPU."""
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.models.gbdt import engine, stages
+    x, y = gbdt_data()
+    n, d = x.shape
+    df = DataFrame({"features": x, "label": y})
+    clf = LightGBMClassifier(device=dev).setGrowthPolicy("leafwise")
+    p = clf._engine_params("binary", 1, n_rows=n)
+    check(p.num_leaves == GBDT_LEAVES and p.max_depth == 0
+          and p.num_iterations == GBDT_TREES and p.max_bin == GBDT_MAX_BIN,
+          f"leafwise Params on {n} rows did not resolve to the slice: {p}")
+    model, cold_s, fit_s, fit_launches = warm_fit(
+        torch, clf, df, {"node_hist": GBDT_LEAVES * GBDT_TREES, "fused": 0,
+                         "predict": 0, "predict_lw": 0}, "leaf-wise")
+    s1 = model.getBoosterState()
+    check(s1.get("kind") == "leafwise", "the fit was not leaf-wise")
+    kern = stages._state_to_ensemble(s1, "binary", dev)
+    bins, parts = fit_parts(torch, clf, df, p, y, same_trees_lw, kern, dev)
+    _, identical, losses = check_vs_segment(same_trees_lw, kern, x, y, p,
+                                            dev)
+    serving = check_transform(model, df, y, "predict_lw")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the profile of one boosting iteration at the fit's shapes
+    bins_t = bins.T.contiguous()
+    raw = torch.full((n, 1), float(s1["base"][0]), device=dev)
+    yj = torch.from_numpy(y).to(dev)
+    ones_n, ones_d = torch.ones(n, device=dev), torch.ones(d, device=dev)
+    no_cats = torch.zeros(d, device=dev)
+
+    def step():
+        engine._boost_step_leafwise(
+            bins, bins_t, raw, yj, ones_n, ones_d, no_cats, p.learning_rate,
+            p.alpha, num_leaves=p.num_leaves, n_bins=p.max_bin,
+            lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+            min_child_weight=p.min_child_weight,
+            min_split_gain=p.min_split_gain, cat_smooth=p.cat_smooth,
+            max_depth=0, hist_impl="mxu", has_cats=False,
+            objective="binary", num_class=1, update_raw=True)
+    step()
+    emit({"phase": "gbdt_leafwise", "rows": n, "features": d,
+          "params": {"num_iterations": p.num_iterations,
+                     "num_leaves": p.num_leaves, "max_depth": p.max_depth,
+                     "max_bin": p.max_bin, "learning_rate": p.learning_rate,
+                     "lambda_l2": p.lambda_l2, "objective": p.objective},
+          "launches": {"fit": fit_launches,
+                       "transform": serving["transform_launches"]},
+          "real_splits": int((np.asarray(s1["split_leaf"]) >= 0).sum()),
+          "cold_fit_s": cold_s, "fit_s": fit_s, "fit_parts_s": parts,
+          "ms_per_iteration": parts["boosting"] / GBDT_TREES * 1e3,
+          "identical_trees_vs_segment": sum(identical),
+          "train_log_loss": losses[0], "train_log_loss_segment": losses[1],
+          **serving, "peak_mem_gb": peak_gb,
+          "gpu": env.gpu_name_and_power_limit(),
+          "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
+    return {"node_hist": fit_launches["node_hist"],
+            "predict_lw": serving["transform_launches"]}
+
+
+def efb_frame():
+    """bench_efb.py:22-41: 200k rows x 2^16 columns, 24 zipf(1.3) tokens a
+    row plus one signal token of 8 (numpy seed 0); the label is which half
+    of the signal vocabulary the row's token is in."""
+    import scipy.sparse as sp
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.core.utils import object_column
+    rng = np.random.default_rng(0)
+    n, d = EFB_ROWS, EFB_COLS
+    rows = np.repeat(np.arange(n), EFB_NNZ)
+    cols = (np.minimum(d - 1, rng.zipf(1.3, size=n * EFB_NNZ) - 1)
+            .astype(np.int64))
+    sig_ids = np.array([5000, 9000, 14000, 20000, 27000, 35000, 44000,
+                        54000])
+    sig_pick = rng.integers(0, len(sig_ids), n)
+    rows = np.concatenate([rows, np.arange(n)])
+    cols = np.concatenate([cols, sig_ids[sig_pick]])
+    x = sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                      shape=(n, d))
+    y = (sig_pick % 2).astype(np.float64)
+    return DataFrame({"features": object_column(list(x)), "label": y}), y
+
+
+def phase_gbdt_efb(torch, env, dev="cuda"):
+    """bench_efb.py's wide-sparse fit: default Params on 200k rows resolve
+    to leaf-wise growth, the tail columns bundle into categorical
+    composites (EFB), and the fit splits them as category sets."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.models.gbdt import stages
+    t0 = time.perf_counter()
+    df, y = efb_frame()
+    data_s = time.perf_counter() - t0
+    clf = (LightGBMClassifier(device=dev).setNumIterations(EFB_ITERS)
+           .setMaxDenseFeatures(EFB_DENSE))
+    p = clf._engine_params("binary", 1, n_rows=len(y))
+    check(p.num_leaves == GBDT_LEAVES,
+          f"default Params on {len(y)} rows did not resolve to leaf-wise "
+          f"growth: {p}")
+    model, first_s, fit_s, fit_launches = warm_fit(
+        torch, clf, df, {"node_hist": GBDT_LEAVES * EFB_ITERS, "fused": 0,
+                         "predict": 0, "predict_lw": 0}, "EFB")
+    state = model.getBoosterState()
+    bundles = model.getFeatureBundles() or []
+    n_dense = len(model.getFeatureSelection())
+    cat_features = np.asarray(state["cat_features"])
+    check(len(bundles) > 0 and n_dense == EFB_DENSE
+          and cat_features[n_dense:].all() and not cat_features[:n_dense].any()
+          and len(cat_features) == n_dense + len(bundles)
+          and len(cat_features) == EFB_FIT_FEATURES,
+          f"EFB planned {len(bundles)} bundles beside {n_dense} dense "
+          f"columns; categorical features {int(cat_features.sum())}; "
+          f"kernel_gbdt checks the node histogram at {EFB_FIT_FEATURES}")
+    cat_splits = int(np.asarray(state["is_cat"]).sum())
+    # the plain path on the same bundled matrix and categorical features
+    xb, _, _, bundle_cats = stages._prepare_fit_features(clf, df)
+    pb = clf._engine_params("binary", 1, categorical=bundle_cats,
+                            n_rows=len(y))
+    kern = stages._state_to_ensemble(state, "binary", dev)
+    _, identical, losses = check_vs_segment(
+        same_trees_lw, kern, xb, y.astype(np.float32), pb, dev)
+    del xb
+    reset_gbdt_counts()
+    t0 = time.perf_counter()
+    scored = model.transform(df)
+    transform_s = time.perf_counter() - t0
+    transform_launches = gbdt_counts()
+    check(sum(transform_launches.values()) == 0,
+          f"the EFB transform (the dense replay) launched a GBDT kernel: "
+          f"{transform_launches}")
+    raw = np.stack(scored.col("rawPrediction"))
+    check(raw.shape == (len(y), 1) and bool(np.isfinite(raw).all()),
+          f"raw scores: shape {raw.shape}")
+    accuracy = float((np.asarray(scored.col("prediction")) == y).mean())
+    check(accuracy >= TOL_EFB_ACCURACY,
+          f"EFB training accuracy {accuracy} < {TOL_EFB_ACCURACY}")
+    emit({"phase": "gbdt_efb", "rows": len(y), "columns": EFB_COLS,
+          "nnz_per_row": EFB_NNZ + 1, "num_iterations": EFB_ITERS,
+          "dense_columns": n_dense, "bundles": len(bundles),
+          "bundled_columns": int(sum(len(b) for b in bundles)),
+          "categorical_splits": cat_splits,
+          "real_splits": int((np.asarray(state["split_leaf"]) >= 0).sum()),
+          "identical_trees_vs_segment": sum(identical),
+          "train_log_loss": losses[0], "train_log_loss_segment": losses[1],
+          "launches": {"fit": fit_launches, "transform": transform_launches},
+          "data_s": data_s, "first_fit_s": first_s, "fit_s": fit_s,
+          "fit_ms_per_iteration": fit_s / EFB_ITERS * 1e3,
+          "transform_s": transform_s,
+          "transform_rows_per_s": len(y) / transform_s,
+          "train_accuracy": accuracy,
+          "gpu": env.gpu_name_and_power_limit()})
+    return {"node_hist": fit_launches["node_hist"]}
 
 
 def kernel_counts():
@@ -1067,7 +1376,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 
 
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
-          "gbdt")
+          "gbdt", "gbdt_leafwise", "gbdt_efb")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -1076,6 +1385,8 @@ PHASE_FNS = {
     "slice": phase_slice,
     "train": phase_train,
     "gbdt": lambda torch, env: phase_gbdt(torch, env),
+    "gbdt_leafwise": lambda torch, env: phase_gbdt_leafwise(torch, env),
+    "gbdt_efb": lambda torch, env: phase_gbdt_efb(torch, env),
 }
 
 
@@ -1121,6 +1432,11 @@ def main(argv=None) -> int:
     serve_launches = phase_slice(torch, env)
     train = phase_train(torch, env)
     gbdt = phase_gbdt(torch, env)
+    leafwise = phase_gbdt_leafwise(torch, env)
+    efb = phase_gbdt_efb(torch, env)
+    hist_by_path = {"fit": gbdt["node_hist"],
+                    "fit_leafwise": leafwise["node_hist"],
+                    "fit_efb": efb["node_hist"]}
     csrc = "mmlspark_tpu_torch/ops/csrc/"
     replaces = "mmlspark_tpu/ops/pallas_kernels.py:"
     emit({"kernels": [
@@ -1155,11 +1471,15 @@ def main(argv=None) -> int:
          "bound_by": bwd["dkv_bound"]["bound_by"],
          "library_ms": bwd["library_ms"]},
         gbdt_entry("mxu_node_histogram", "gbdt_histogram.cu", "447",
-                   gbdt["node_hist"], {"fit": gbdt["node_hist"]},
+                   sum(hist_by_path.values()), hist_by_path,
                    gbdt_worst["node_hist"], gbdt_timing["node_hist"]),
         gbdt_entry("gbdt_predict_quant_levelwise", "gbdt_predict.cu", "585",
                    gbdt["predict"], {"transform": gbdt["predict"]},
                    gbdt_worst["predict"], gbdt_timing["predict"]),
+        gbdt_entry("gbdt_predict_quant_leafwise", "gbdt_predict.cu", "622",
+                   leafwise["predict_lw"],
+                   {"transform_leafwise": leafwise["predict_lw"]},
+                   gbdt_worst["predict_lw"], gbdt_timing["predict_lw"]),
         gbdt_entry("histogram_fused", "gbdt_histogram.cu", "769",
                    gbdt["fused"],
                    {"fit_hist_impl_pallas_10_iterations": gbdt["fused"]},

@@ -13,11 +13,13 @@ CUDA flash-attention kernels: the forward
 (``ops/csrc/flash_attention_fwd.cu``) and the dq and dk/dv backward
 (``ops/csrc/flash_attention_bwd.cu``).
 
-Slice 3 adds level-wise gradient-boosted trees: DataFrame of feature vectors
-and labels -> ``LightGBMClassifier.fit`` / ``LightGBMRegressor.fit`` -> a
-model whose ``transform`` scores rows. The node histogram, the v1 fused
-histogram and the quantized ensemble predict are hand-written CUDA kernels
-(``ops/csrc/gbdt_histogram.cu``, ``ops/csrc/gbdt_predict.cu``).
+Gradient-boosted trees: DataFrame of feature vectors and labels ->
+``LightGBMClassifier.fit`` / ``LightGBMRegressor.fit`` (level-wise, or
+leaf-wise with categorical set splits and EFB bundles of wide sparse
+inputs) -> a model whose ``transform`` scores rows. The node histogram, the
+v1 fused histogram and the quantized level-wise and leaf-wise ensemble
+predicts are hand-written CUDA kernels (``ops/csrc/gbdt_histogram.cu``,
+``ops/csrc/gbdt_predict.cu``).
 
 Importing the package stays light: torch loads on first use of
 ``TorchModel``, ``TorchLearner``, ``build_model`` or a LightGBM stage.

@@ -1,5 +1,5 @@
 """Gradient-boosted decision trees in PyTorch: the port of
-``mmlspark_tpu/models/gbdt/engine.py``'s level-wise serial engine.
+``mmlspark_tpu/models/gbdt/engine.py``'s serial engine.
 
 The LightGBM replacement (reference: src/lightgbm — the
 LGBM_BoosterUpdateOneIter loop at TrainUtils.scala:63-77). As in the JAX
@@ -10,7 +10,8 @@ engine:
     the histogram kernel;
   * trees grow LEVEL-WISE to a fixed depth — every level is one histogram
     build over all of the level's nodes plus a vectorized split-gain
-    argmax;
+    argmax — or, with ``num_leaves > 0``, LEAF-WISE (best-first, with
+    categorical set splits: ``leafwise.py``);
   * multiclass trains K trees per iteration, one per class gradient.
 
 Trees are stored heap-ordered in dense arrays (node i -> children 2i+1 and
@@ -24,11 +25,10 @@ kernels' plain versions run and binning runs in numpy. Randomness (bagging,
 feature masks, the early-stopping holdout) comes from seeded numpy
 generators in the JAX engine's order, so the draws match it.
 
-Not ported yet, each raising NotImplementedError: leaf-wise growth
-(``num_leaves > 0``, with categorical splits: ROADMAP slice 4), a mesh or
-a multi-process fit (ROADMAP item 12), ``fit_gbdt_elastic`` and the
-telemetry gauges and spans (item 13), and ``traced_raw_levelwise`` (item
-11).
+Not ported yet, each raising NotImplementedError: a mesh or a
+multi-process fit, level-wise or leaf-wise (ROADMAP item 12),
+``fit_gbdt_elastic`` and the telemetry gauges and spans (item 13), and
+``traced_raw_levelwise`` (item 11).
 """
 
 from __future__ import annotations
@@ -39,16 +39,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...core.utils import get_logger
 from ...ops import gbdt_kernels as gk
-
-_SLICE_4 = ("leaf-wise growth (num_leaves > 0, categorical set splits, EFB "
-            "bundles) is not ported yet: ROADMAP.md slice 4 (Queue 1 item 7)")
 
 
 class GBDTParams(NamedTuple):
     num_iterations: int = 100
     learning_rate: float = 0.1
-    max_depth: int = 5              # numLeaves ~ 2^max_depth (level-wise)
+    max_depth: int = 5              # numLeaves ~ 2^max_depth (level-wise);
+                                    # leaf-wise: a depth cap, 0 = none
     max_bin: int = 255
     lambda_l2: float = 1.0
     lambda_l1: float = 0.0
@@ -69,7 +68,7 @@ class GBDTParams(NamedTuple):
     # LightGBM tree_learner: on one card every fit is serial (the
     # distributed learners wait for the parallel/ port, ROADMAP item 12)
     tree_learner: str = "data"      # data | feature | auto | serial
-    num_leaves: int = 0             # > 0: leaf-wise growth (slice 4)
+    num_leaves: int = 0             # > 0: leaf-wise growth (leafwise.py)
     categorical_feature: tuple = ()
     cat_smooth: float = 10.0
 
@@ -213,8 +212,11 @@ def _histograms(bins, bins_t, g, h, node, n_nodes: int, n_bins: int,
     else:
         build = gk.segment_histogram
     hg, hh = build(comb, g, h, n_bins=n_nodes * n_bins)
-    return (hg.reshape(d, n_nodes, n_bins).transpose(0, 1),
-            hh.reshape(d, n_nodes, n_bins).transpose(0, 1))
+    # the kernel's layout: CUDA reductions and scans over the bin axis sum
+    # in an order that depends on the layout, and near-tied gains (leaves
+    # the label already separates) follow that order's last bit
+    return (hg.reshape(d, n_nodes, n_bins).transpose(0, 1).contiguous(),
+            hh.reshape(d, n_nodes, n_bins).transpose(0, 1).contiguous())
 
 
 def _soft(gsum, lambda_l1):
@@ -338,6 +340,28 @@ def _boost_step_level(bins, bins_t, raw, y, row_mask, feat_mask, lr, alpha,
     return raw, f, t, lv, node
 
 
+def _boost_step_leafwise(bins, bins_t, raw, y, row_mask, feat_mask,
+                         cat_feats, lr, alpha, *, num_leaves: int,
+                         n_bins: int, lambda_l2, lambda_l1, min_child_weight,
+                         min_split_gain, cat_smooth, max_depth: int,
+                         hist_impl: str, has_cats: bool, objective: str,
+                         num_class: int, update_raw: bool):
+    """Leaf-wise twin of _boost_step_level: gradients, the K trees and the
+    training-raw update from each row's final leaf."""
+    from .leafwise import build_tree_leafwise_multi
+    g, h = _grad_hess(raw, y, objective, num_class, alpha)
+    S, f, t, W, IC, lv, node = build_tree_leafwise_multi(
+        bins, bins_t, g, h, row_mask, feat_mask, cat_feats,
+        num_leaves=num_leaves, n_bins=n_bins, lambda_l2=lambda_l2,
+        lambda_l1=lambda_l1, min_child_weight=min_child_weight,
+        min_split_gain=min_split_gain, cat_smooth=cat_smooth,
+        max_depth=max_depth, hist_impl=hist_impl, has_cats=has_cats)
+    lv = lv * lr
+    if update_raw:
+        raw = raw + _gather_tree_contrib(lv, node)
+    return raw, S, f, t, W, IC, lv, node
+
+
 def _predict_tree_t(bins_t, feature, threshold, leaf, depth: int):
     """One level-wise tree over the transposed bin matrix (d, n) -> (n,)
     leaf values: per level, each row's node test (bin > threshold, int32
@@ -439,21 +463,24 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
              eval_set: Optional[tuple] = None, elastic_ctx=None,
              binned: Optional[tuple] = None,
              device="cuda") -> TreeEnsemble:
-    """Train a level-wise boosted ensemble on one device (cuda unless the
-    caller asks for "cpu").
+    """Train a boosted ensemble on one device (cuda unless the caller asks
+    for "cpu"): level-wise (a TreeEnsemble), or leaf-wise when
+    ``num_leaves > 0`` (a leafwise.LeafwiseEnsemble, with category-set
+    splits on ``categorical_feature``).
 
     ``sample_weight`` (n,) masks or weights rows (weight 0 rows neither
     train nor enter the bin edges and the init score); ``eval_set=(x, y)``
     is the early-stopping holdout, else ``early_stopping_round > 0`` holds
     out a seeded fifth of the rows; ``binned=(bins, edges)`` supplies an
     already-binned (n, d) uint8 matrix (numpy or tensor) and its edges
-    (pass x=None). A ``mesh``, ``elastic_ctx`` or ``num_leaves > 0`` raise
-    NotImplementedError naming the ROADMAP item that ports them."""
+    (pass x=None). A ``mesh`` or ``elastic_ctx``, and a multi-process
+    run, raise NotImplementedError naming the ROADMAP item that ports
+    them."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded GBDT fits (tree_learner data/feature/auto over "
-            "several devices) wait for the parallel/ port: ROADMAP.md "
-            "Queue 1 item 12")
+            "several devices, level-wise or leaf-wise) wait for the "
+            "parallel/ port: ROADMAP.md Queue 1 item 12")
     if elastic_ctx is not None:
         raise NotImplementedError(
             "elastic boosted fits wait for the resilience/ port: ROADMAP.md "
@@ -462,8 +489,8 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise NotImplementedError(
-            "multi-process GBDT fits wait for the parallel/ port: ROADMAP.md "
-            "Queue 1 item 12")
+            "multi-process GBDT fits (level-wise or leaf-wise) wait for the "
+            "parallel/ port: ROADMAP.md Queue 1 item 12")
     return _fit_gbdt_impl(x, y, params, sample_weight=sample_weight,
                           eval_set=eval_set, binned=binned,
                           device=torch_device(device))
@@ -476,7 +503,7 @@ def fit_gbdt_elastic(*args, **kwargs):
 
 
 def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
-                   binned, device: torch.device) -> TreeEnsemble:
+                   binned, device: torch.device):
     p = params
     if binned is not None:
         if eval_set is not None:
@@ -497,11 +524,36 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     if not 2 <= p.max_bin <= 256:
         raise ValueError(f"max_bin must be in [2, 256] (uint8 bin ids; "
                          f"LightGBM's own ceiling is 255), got {p.max_bin}")
-    if p.num_leaves > 0:
-        raise NotImplementedError(_SLICE_4)
-    if p.categorical_feature:
+    leafwise = p.num_leaves > 0
+    if leafwise and not 2 <= p.num_leaves <= 4096:
+        raise ValueError(f"num_leaves must be in [2, 4096], got {p.num_leaves}")
+    if leafwise and p.tree_learner == "feature":
+        raise ValueError(
+            "leaf-wise growth supports tree_learner=serial|data|auto "
+            "(feature-parallel candidates are level-wise only; set "
+            "num_leaves=0 or tree_learner='data')")
+    if p.categorical_feature and not leafwise:
         raise ValueError("categorical_feature requires leaf-wise growth "
                          "(set num_leaves > 0)")
+    cat_arr = np.zeros(d, dtype=bool)
+    for j in p.categorical_feature:
+        if not 0 <= j < d:
+            raise ValueError(f"categorical_feature index {j} out of range "
+                             f"for {d} features")
+        cat_arr[j] = True
+        if binned is not None:
+            # identity binning already clipped the codes; the raw column
+            # never materialized, so the top-code warning cannot run
+            continue
+        with np.errstate(invalid="ignore"):
+            top = float(np.nanmax(x[:, j])) if len(x) else 0.0
+        if top >= p.max_bin:
+            get_logger("gbdt").warning(
+                "categorical feature %d has codes up to %d but max_bin=%d; "
+                "codes >= max_bin alias into one bin — raise maxBin or "
+                "re-index the column", j, int(top), p.max_bin)
+    has_cats = bool(cat_arr.any())
+    cat_bins = cat_arr if has_cats else None
     K = p.num_class if p.objective == "multiclass" else 1
     is_rf = p.boosting_type == "rf"
     if is_rf and not ((p.bagging_fraction < 1.0 and p.bagging_freq > 0)
@@ -518,7 +570,7 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     real = slice(None) if sample_weight is None else sample_weight > 0
     if binned is None:
         edges = compute_bin_edges(x[real], p.max_bin)
-        bins = bin_data_auto(x, edges, None, p.max_bin, device)
+        bins = bin_data_auto(x, edges, cat_bins, p.max_bin, device)
     else:
         bins = torch.as_tensor(np.asarray(bins_in) if not isinstance(
             bins_in, torch.Tensor) else bins_in).to(device, torch.uint8)
@@ -551,7 +603,7 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
                          else sample_weight * holdout)
     if eval_set is not None:
         bins_val = (eval_set[0] if binned is not None else bin_data_auto(
-            np.asarray(eval_set[0], dtype=np.float32), edges, None,
+            np.asarray(eval_set[0], dtype=np.float32), edges, cat_bins,
             p.max_bin, device))
         bins_val_t = bins_val.T.contiguous()
         y_val = torch.from_numpy(np.asarray(eval_set[1], np.float32)).to(
@@ -568,6 +620,10 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     fm = (None if p.feature_fraction < 1.0
           else _to_device(np.ones(d, dtype=np.float32), device))
     lr_eff = 1.0 if is_rf else p.learning_rate
+    if leafwise:
+        from . import leafwise as lw
+        cat_t = torch.from_numpy(cat_arr.astype(np.float32)).to(device)
+        lw_depth = max(0, p.max_depth)     # 0 or -1 = uncapped (LightGBM)
     for it in range(p.num_iterations):
         if bagging:
             if it % p.bagging_freq == 0:
@@ -585,19 +641,33 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
             if not keep.any():
                 keep[feat_rng.integers(0, d)] = True
             fm = _to_device(keep.astype(np.float32), device)
-        raw, f, t, lv, _ = _boost_step_level(
-            bins, bins_t, raw, yj, rm, fm,
-            lr_eff, p.alpha, depth=p.max_depth, n_bins=p.max_bin,
-            lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
-            min_child_weight=p.min_child_weight,
-            min_split_gain=p.min_split_gain, hist_impl=hist_impl,
-            objective=p.objective, num_class=K, update_raw=not is_rf)
-        feats.append(f)
-        thrs.append(t)
+        if leafwise:
+            raw, S, f, t, W, IC, lv, _ = _boost_step_leafwise(
+                bins, bins_t, raw, yj, rm, fm, cat_t, lr_eff, p.alpha,
+                num_leaves=p.num_leaves, n_bins=p.max_bin,
+                lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+                min_child_weight=p.min_child_weight,
+                min_split_gain=p.min_split_gain, cat_smooth=p.cat_smooth,
+                max_depth=lw_depth, hist_impl=hist_impl, has_cats=has_cats,
+                objective=p.objective, num_class=K, update_raw=not is_rf)
+            feats.append((S, f, t, W, IC))
+        else:
+            raw, f, t, lv, _ = _boost_step_level(
+                bins, bins_t, raw, yj, rm, fm,
+                lr_eff, p.alpha, depth=p.max_depth, n_bins=p.max_bin,
+                lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+                min_child_weight=p.min_child_weight,
+                min_split_gain=p.min_split_gain, hist_impl=hist_impl,
+                objective=p.objective, num_class=K, update_raw=not is_rf)
+            feats.append(f)
+            thrs.append(t)
         leaves.append(lv)
         if p.early_stopping_round > 0:
             raw_val = raw_val + torch.stack(
-                [_predict_tree_t(bins_val_t, f[k], t[k], lv[k], p.max_depth)
+                [lw.predict_tree_lw_t(bins_val_t, S[k], f[k], t[k], W[k],
+                                      IC[k], lv[k], has_cats=has_cats)
+                 if leafwise else
+                 _predict_tree_t(bins_val_t, f[k], t[k], lv[k], p.max_depth)
                  for k in range(K)], dim=1)
             cur = float(_loss(raw_val, y_val, p.objective, p.alpha))
             if cur < best_loss - 1e-9:
@@ -612,6 +682,12 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
                                leaves[:best_iter])
     if is_rf:
         leaves = [lv / len(leaves) for lv in leaves]
+    if leafwise:
+        S, F, T, W, IC = (torch.stack(parts) for parts in zip(*feats))
+        return lw.LeafwiseEnsemble(
+            split_leaf=S, feature=F, threshold=T, cat_bitset=W, is_cat=IC,
+            leaf=torch.stack(leaves), bin_edges=edges, cat_features=cat_arr,
+            base=base, objective=p.objective)
     return TreeEnsemble(
         feature=torch.stack(feats), threshold=torch.stack(thrs),
         leaf=torch.stack(leaves), bin_edges=edges, base=base,
@@ -744,18 +820,24 @@ def _ens_device(ens, device) -> torch.device:
     return torch_device("cuda")
 
 
-def predict_raw(ens: TreeEnsemble, x: np.ndarray,
-                num_iteration: Optional[int] = None,
+def predict_raw(ens, x: np.ndarray, num_iteration: Optional[int] = None,
                 predict_impl: str = "auto", device=None) -> np.ndarray:
-    """Raw ensemble scores (n, K) float32. ``device`` defaults to the
-    ensemble's own (cuda for host arrays). ``predict_impl``: 'dense' walks
-    the int32/f32 trees tree by tree; 'pallas' runs the quantized predict
-    kernel (uint8 tables, bf16 leaves); 'pallas_int8' the same with
-    per-tree-scaled int8 leaves; 'auto' the kernel on CUDA when the
-    ensemble fits its caps, else dense."""
-    if not isinstance(ens, TreeEnsemble):
-        raise NotImplementedError(_SLICE_4)
+    """Raw ensemble scores (n, K) float32 of a level-wise TreeEnsemble or a
+    leafwise.LeafwiseEnsemble. ``device`` defaults to the ensemble's own
+    (cuda for host arrays). ``predict_impl``: 'dense' walks the int32/f32
+    trees tree by tree; 'pallas' runs the quantized predict kernel (uint8
+    tables, bf16 leaves); 'pallas_int8' the same with per-tree-scaled int8
+    leaves; 'auto' the kernel on CUDA when the ensemble fits its caps (and,
+    leaf-wise, has no categorical split), else dense."""
+    from .leafwise import LeafwiseEnsemble, predict_raw_lw
     dev = _ens_device(ens, device)
+    if isinstance(ens, LeafwiseEnsemble):
+        cats = np.asarray(ens.cat_features, bool)
+        bins_t = bin_data_auto(x, ens.bin_edges, cats if cats.any() else None,
+                               ens.bin_edges.shape[1] + 1,
+                               device=dev).T.contiguous()
+        return predict_raw_lw(ens, bins_t, num_iteration,
+                              predict_impl=predict_impl).cpu().numpy()
     bins_t = bin_data_auto(x, ens.bin_edges, device=dev).T.contiguous()
     T, K, _ = ens.feature.shape
     depth = int(np.log2(ens.leaf.shape[2]))
@@ -800,7 +882,7 @@ def prob_from_raw(objective: str, raw: np.ndarray) -> np.ndarray:
     return raw[:, 0]
 
 
-def predict(ens: TreeEnsemble, x: np.ndarray, predict_impl: str = "auto",
+def predict(ens, x: np.ndarray, predict_impl: str = "auto",
             device=None) -> np.ndarray:
     """Probabilities for classification, values for regression."""
     return prob_from_raw(ens.objective,

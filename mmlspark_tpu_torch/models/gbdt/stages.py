@@ -7,13 +7,15 @@ same Params, plus ``device`` ("cuda" by default, raising without a card;
 "cpu" on request). One card is one serial learner, so ``parallelism`` is
 accepted and every fit runs serial, as the JAX stages do on one device.
 
-Ported: level-wise (depthwise) fits and their models, dense and wide-sparse
-(top-k columns) features, save/load, and JAX-fitted ``boosterState`` dicts,
-which the models take as they are. Not yet, each raising
-NotImplementedError: leaf-wise growth — the ``growthPolicy`` default below
-262144 rows, categorical splits and EFB bundles (ROADMAP slice 4) — and
-``elasticConfig`` (ROADMAP item 13). ``capture``/``_fit_captured`` wait for
-the core/capture.py port (item 11).
+Ported: level-wise (depthwise) and leaf-wise fits (the ``growthPolicy``
+default below 262144 rows, with categorical slots as category-set splits)
+and their models, dense and wide-sparse features (the top-k columns, and
+under leaf-wise growth the tail bundled into categorical composites by
+EFB, ``efb.py``), save/load, and JAX-fitted ``boosterState`` dicts of
+either kind, which the models take as they are. Not yet, each raising
+NotImplementedError: ``elasticConfig`` (ROADMAP item 13); multi-process
+fits wait for the parallel/ port (item 12). ``capture``/``_fit_captured``
+wait for the core/capture.py port (item 11).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ...core.schema import MML_TAG, SparkSchema
 from ...core.utils import get_logger, object_column
 from ...ops.text_ops import rows_to_matrix
 from . import engine
+from .leafwise import LeafwiseEnsemble
 
 _DEVICE_DOC = ("torch device the fit and the fitted model run on: cuda (the "
                "default; raises without a card) or cpu")
@@ -45,8 +48,8 @@ class _BoosterParams:
                         "derived from numLeaves for depthwise", default=0,
                         min=0)
     growthPolicy = StringParam(
-        "leafwise = native-LightGBM best-first growth to numLeaves leaves "
-        "(not ported yet: ROADMAP slice 4); depthwise = level-wise to "
+        "leafwise = native-LightGBM best-first growth to numLeaves leaves; "
+        "depthwise = level-wise to "
         "maxDepth; auto (default) = leafwise EXCEPT for pure-default fits "
         "at >= 262144 rows, which run depthwise to the numLeaves-equivalent "
         "depth (one level-wise round histograms every node at once). The "
@@ -171,23 +174,52 @@ class _BoosterParams:
 def _prepare_fit_features(stage, df):
     """Feature matrix for a booster fit: (x, selection, bundles,
     bundle_cat_ids). Dense inputs pass through; wide sparse inputs keep the
-    maxDenseFeatures most frequent columns. The EFB branch (wide sparse
-    inputs under leaf-wise growth) is slice 4's."""
+    maxDenseFeatures densest columns numeric and, when the growth mode
+    supports category-set splits, BUNDLE the tail into categorical
+    composites (EFB-lite, efb.py); otherwise the tail is dropped."""
     mat = rows_to_matrix(df.col(stage.getFeaturesCol()))
+    if hasattr(mat, "tocsc"):
+        mat = mat.tocsc()
     cap = stage.getMaxDenseFeatures()
+    # sparse-wide inputs signal EFB (categorical bundles) intent, which
+    # needs leaf-wise growth — categorical=True keeps the auto policy
+    # leaf-wise rather than routing large fits depthwise
     if hasattr(mat, "tocsc") and mat.shape[1] > cap \
             and stage._effective_leafwise(n_rows=mat.shape[0],
                                           categorical=True):
-        raise NotImplementedError(engine._SLICE_4)
+        from .efb import apply_bundles, plan_and_split
+        dense, bundles = plan_and_split(mat, cap,
+                                        stage.getOrDefault("maxBin"),
+                                        stage.getOrDefault("seed"))
+        xd = _densify(mat, dense)
+        if not bundles:
+            return xd, dense, None, ()
+        xb = apply_bundles(mat, bundles)
+        get_logger("gbdt").info(
+            "EFB: %d sparse tail columns bundled into %d categorical "
+            "composites (+%d dense)", sum(len(b) for b in bundles),
+            len(bundles), len(dense))
+        x = np.concatenate([xd, xb], axis=1)
+        return (x, dense, bundles,
+                tuple(range(xd.shape[1], x.shape[1])))
     sel = _select_features(mat, cap)
     return _densify(mat, sel), sel, None, ()
 
 
 def _predict_features(df, col, selection, bundles) -> np.ndarray:
     """Transform-time twin of _prepare_fit_features for a fitted model."""
-    if bundles:
-        raise NotImplementedError(engine._SLICE_4)
-    return _features_matrix(df, col, selection)
+    if not bundles:
+        return _features_matrix(df, col, selection)
+    from .efb import apply_bundles
+    mat = rows_to_matrix(df.col(col))
+    if not hasattr(mat, "tocsc"):
+        import scipy.sparse as sp
+        mat = sp.csc_matrix(np.asarray(mat))
+    else:
+        mat = mat.tocsc()
+    xd = _densify(mat, selection)
+    xb = apply_bundles(mat, [np.asarray(b) for b in bundles])
+    return np.concatenate([xd, xb], axis=1)
 
 
 def _densify(mat, selection=None) -> np.ndarray:
@@ -259,47 +291,76 @@ def _fit_ensemble(params_holder, x, y, objective, num_class=1, alpha=0.9,
                            device=params_holder.getOrDefault("device"))
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
 def _ensemble_to_state(ens) -> dict:
-    def host(a):
-        return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
-    return {"feature": host(ens.feature), "threshold": host(ens.threshold),
-            "leaf": host(ens.leaf), "bin_edges": np.asarray(ens.bin_edges),
-            "base": np.asarray(ens.base)}
+    """The fitted ensemble as host arrays, in the JAX stages' layout (a
+    leaf-wise state carries ``kind`` and its category bitsets as uint32),
+    so states of the two packages interchange."""
+    state = {"feature": _host(ens.feature), "threshold": _host(ens.threshold),
+             "leaf": _host(ens.leaf), "bin_edges": np.asarray(ens.bin_edges),
+             "base": np.asarray(ens.base)}
+    if isinstance(ens, LeafwiseEnsemble):
+        state.update(kind="leafwise", split_leaf=_host(ens.split_leaf),
+                     cat_bitset=_host(ens.cat_bitset).astype(np.uint32),
+                     is_cat=_host(ens.is_cat),
+                     cat_features=np.asarray(ens.cat_features))
+    return state
 
 
 def _state_to_ensemble(state: dict, objective: str, device=None):
-    """A level-wise ``boosterState`` — the port's, or the JAX stages' as it
-    is — as a TreeEnsemble on ``device`` (default cuda)."""
-    if state.get("kind") == "leafwise":
-        raise NotImplementedError(engine._SLICE_4)
+    """A ``boosterState`` — the port's, or the JAX stages' as it is — as a
+    TreeEnsemble, or a LeafwiseEnsemble for ``kind="leafwise"``, on
+    ``device`` (default cuda)."""
     import torch
     dev = engine.torch_device(device or "cuda")
-    return engine.TreeEnsemble(
-        feature=torch.from_numpy(np.asarray(state["feature"],
-                                            np.int32)).to(dev),
-        threshold=torch.from_numpy(np.asarray(state["threshold"],
-                                              np.int32)).to(dev),
-        leaf=torch.from_numpy(np.asarray(state["leaf"], np.float32)).to(dev),
-        bin_edges=np.asarray(state["bin_edges"], np.float32),
-        base=np.asarray(state["base"], np.float32),
-        objective=objective)
+
+    def put(key, dtype):
+        return torch.from_numpy(np.asarray(state[key]).astype(dtype)).to(dev)
+    common = dict(feature=put("feature", np.int32),
+                  threshold=put("threshold", np.int32),
+                  leaf=put("leaf", np.float32),
+                  bin_edges=np.asarray(state["bin_edges"], np.float32),
+                  base=np.asarray(state["base"], np.float32),
+                  objective=objective)
+    if state.get("kind") == "leafwise":
+        # uint32 words widen to int64 (32 bits per word, as the grower packs)
+        return LeafwiseEnsemble(
+            split_leaf=put("split_leaf", np.int32),
+            cat_bitset=put("cat_bitset", np.uint32).to(torch.int64),
+            is_cat=put("is_cat", bool),
+            cat_features=np.asarray(state["cat_features"]).astype(bool),
+            **common)
+    return engine.TreeEnsemble(**common)
 
 
 def _split_importances(state: dict, selection, bundles,
                        n_features=None) -> np.ndarray:
     """Per-original-feature split counts across the fitted ensemble
-    (LightGBM ``importance_type='split'``): a real split has
-    ``threshold < n_bins``; splits map back through the sparse feature
-    selection."""
-    if bundles or state.get("kind") == "leafwise":
-        raise NotImplementedError(engine._SLICE_4)
+    (LightGBM ``importance_type='split'``). Depth-wise trees mark a real
+    split with ``threshold < n_bins``; the leaf-wise grower marks no-op
+    rounds with ``split_leaf = -1``. Dense splits map back through the
+    sparse feature selection; a split on an EFB bundle composite credits
+    every member column in the split's category set."""
     feat = np.asarray(state["feature"])
     edges = np.asarray(state["bin_edges"])
     d_internal = edges.shape[0]
-    real = np.asarray(state["threshold"]) < edges.shape[1] + 1
-    counts = np.bincount(feat[real], minlength=d_internal).astype(np.int64)
+    bundles = list(bundles) if bundles else []
+    n_dense = d_internal - len(bundles)
+    if state.get("kind") == "leafwise":
+        real = np.asarray(state["split_leaf"]) >= 0
+    else:
+        real = np.asarray(state["threshold"]) < edges.shape[1] + 1
+    dense_split = real & (feat < n_dense)
+    counts = np.bincount(feat[dense_split],
+                         minlength=n_dense).astype(np.int64)
+
     sel = None if selection is None else np.asarray(selection)
-    needed = d_internal if sel is None else int(sel.max(initial=-1)) + 1
+    needed = d_internal if sel is None else int(max(
+        [sel.max(initial=-1)]
+        + [b.max(initial=-1) for b in map(np.asarray, bundles)])) + 1
     if n_features is None:
         n_features = needed
     elif n_features < needed:
@@ -308,9 +369,24 @@ def _split_importances(state: dict, selection, bundles,
             f"feature space (needs >= {needed})")
     out = np.zeros(n_features, np.int64)
     if sel is None:
-        out[:d_internal] = counts
+        out[:n_dense] = counts
     else:
-        out[sel] = counts
+        out[sel[:n_dense]] = counts
+
+    if bundles:
+        bits = np.asarray(state["cat_bitset"])   # (T,K,L-1,CAT_WORDS)
+        for t, k, r in zip(*np.nonzero(real & (feat >= n_dense))):
+            members = np.asarray(bundles[feat[t, k, r] - n_dense])
+            w = bits[t, k, r]
+            # category c = 1-based member position; category 0 = "no member
+            # nonzero". The set may be the complement form ({0} + unused
+            # codes routed right, all members left — the "any member
+            # nonzero?" split): member bits then carry no signal, and the
+            # split reads every member equally.
+            in_set = np.asarray(
+                [(w[c >> 5] >> np.uint32(c & 31)) & np.uint32(1)
+                 for c in range(1, len(members) + 1)], dtype=bool)
+            out[members[in_set] if in_set.any() else members] += 1
     return out
 
 
@@ -343,8 +419,8 @@ class _BoosterModel(Model, HasFeaturesCol):
     featureSelection = ComplexParam(
         "column indices the fit kept (sparse wide inputs)", default=None)
     featureBundles = ComplexParam(
-        "EFB bundles: tail sparse columns per categorical composite "
-        "(slice 4)", default=None)
+        "EFB bundles: tail sparse columns per categorical composite",
+        default=None)
     device = StringParam(_DEVICE_DOC, default="cuda")
 
     def _ensemble(self):

@@ -13,6 +13,9 @@ a plain int attribute, ``launches``, and nowhere else.
 * :func:`gbdt_predict_quant_levelwise` (``_gbdt_quant_lvl_kernel``) — the
   summed leaves of a level-wise ensemble over uint8 tables;
   ``csrc/gbdt_predict.cu``.
+* :func:`gbdt_predict_quant_leafwise` (``_gbdt_quant_lw_kernel``) — the
+  same for a leaf-wise ensemble, replaying each tree's split sequence;
+  ``csrc/gbdt_predict.cu``.
 
 Every grad/hess sum here — the kernels, their plain versions, the plain
 histograms and the leaf sums — accumulates in float64 and rounds to float32
@@ -27,7 +30,7 @@ near-tie in the split search differently.
 
 Also here, as plain PyTorch (the JAX package's plain-XLA functions):
 :func:`segment_histogram`, :func:`compare_reduce_histogram` and
-:func:`node_sums`, and the predict kernel's eligibility caps.
+:func:`node_sums`, and the predict kernels' eligibility caps.
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ import ctypes
 
 import torch
 
-#: the quantized predict kernel's caps (pallas_kernels.py:581-582), kept as
-#: the eligibility rule of predict_impl="pallas"
+#: the quantized predict kernels' caps (pallas_kernels.py:581-582): nodes
+#: of a level-wise tree or split rounds of a leaf-wise one, and leaves; kept
+#: as the eligibility rule of predict_impl="pallas"
 PREDICT_QUANT_MAX_NODES = 127
 PREDICT_QUANT_MAX_LEAVES = 128
 
@@ -62,6 +66,10 @@ _C_PREDICT = {
     "mmlspark_gbdt_predict_quant_levelwise": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "mmlspark_gbdt_predict_quant_leafwise": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "mmlspark_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -388,3 +396,102 @@ def gbdt_predict_quant_levelwise(bins_t, feature, threshold, leaf, *,
 
 
 gbdt_predict_quant_levelwise.launches = 0
+
+
+def _check_lw_tables(bins_t, split_leaf, feature, threshold, leaf):
+    if bins_t.dim() != 2 or split_leaf.dim() != 3:
+        raise ValueError("bins_t must be (d, n) and the tables (T, K, R)")
+    T, K, R = split_leaf.shape
+    if feature.shape != split_leaf.shape \
+            or threshold.shape != split_leaf.shape \
+            or tuple(leaf.shape) != (T, K, R + 1):
+        raise ValueError(
+            f"leaf-wise tables disagree: split_leaf {tuple(split_leaf.shape)}"
+            f", feature {tuple(feature.shape)}, threshold "
+            f"{tuple(threshold.shape)}, leaf {tuple(leaf.shape)} (want R + 1 "
+            f"leaves)")
+    if not 1 <= R <= PREDICT_QUANT_MAX_NODES \
+            or R + 1 > PREDICT_QUANT_MAX_LEAVES:
+        raise ValueError(f"{R} split rounds exceed the kernel's caps "
+                         f"({PREDICT_QUANT_MAX_NODES} rounds, "
+                         f"{PREDICT_QUANT_MAX_LEAVES} leaves)")
+    if not (bins_t.device == split_leaf.device == feature.device
+            == threshold.device == leaf.device):
+        raise ValueError("bins_t and the tables on different devices")
+
+
+def quant_leafwise_reference(bins_t, split_leaf, feature, threshold, leaf):
+    """Plain PyTorch version of :func:`gbdt_predict_quant_leafwise`: each
+    tree's split sequence replayed round by round, summing each tree's leaf
+    in tree order from 0 (the kernel's order, so the two agree bit for
+    bit). It repeats the numeric arm of leafwise._replay_lw_streaming on
+    purpose: the kernel's check stays independent of the model code that
+    the kernel serves."""
+    T, K, R = split_leaf.shape
+    n = bins_t.shape[1]
+    dev = bins_t.device
+    sl = split_leaf.long()
+    feat = feature.long()
+    thr = threshold.long()
+    lf = leaf.float()
+    out = torch.zeros((n, K), dtype=torch.float32, device=dev)
+    for t in range(T):
+        for k in range(K):
+            pos = torch.zeros(n, dtype=torch.long, device=dev)
+            for r in range(R):
+                vals = bins_t.index_select(0, feat[t, k, r:r + 1])[0]
+                right = (pos == sl[t, k, r]) & (vals.long() > thr[t, k, r])
+                pos = torch.where(right, r + 1, pos)
+            out[:, k] += lf[t, k][pos]
+    return out
+
+
+def gbdt_predict_quant_leafwise(bins_t, split_leaf, feature, threshold,
+                                leaf):
+    """Quantized leaf-wise ensemble predict: one launch scores every tree.
+
+    bins_t (d, n) uint8 — the transposed bin matrix; split_leaf (T, K, R)
+    int32 — the leaf each round splits, -1 for a no-op round; feature and
+    threshold (T, K, R) uint8 (threshold 255 routes nothing right); leaf
+    (T, K, R + 1) float32 — the bf16 or int8 table widened. Numeric splits
+    only (categorical bitsets stay on the dense path). Returns (n, K)
+    float32, the summed leaves without the base score."""
+    _check_lw_tables(bins_t, split_leaf, feature, threshold, leaf)
+    if bins_t.device.type == "cpu":
+        return quant_leafwise_reference(bins_t, split_leaf, feature,
+                                        threshold, leaf)
+    if bins_t.device.type != "cuda":
+        raise ValueError(f"gbdt_predict_quant_leafwise runs on cuda or cpu "
+                         f"tensors, not {bins_t.device}")
+    d, n = bins_t.shape
+    T, K, R = split_leaf.shape
+    if bins_t.dtype != torch.uint8 or bins_t.stride(1) != 1:
+        raise ValueError("the CUDA kernel reads uint8 bins_t with unit row "
+                         "stride")
+    if split_leaf.dtype != torch.int32 or feature.dtype != torch.uint8 \
+            or threshold.dtype != torch.uint8 or leaf.dtype != torch.float32:
+        raise ValueError("the CUDA kernel takes int32 split_leaf, uint8 "
+                         "feature/threshold and float32 leaf tables")
+    if not 1 <= d <= 256:
+        raise ValueError(f"the CUDA kernel takes 1..256 features, not {d}")
+    out = torch.zeros((n, K), dtype=torch.float32, device=bins_t.device)
+    if n == 0 or T == 0:
+        return out
+    split_leaf, feature, threshold, leaf = (
+        x.contiguous() for x in (split_leaf, feature, threshold, leaf))
+    if int(feature.max()) >= d:
+        raise ValueError(f"feature ids must be < {d}")
+    from . import _build
+    lib = _build.load("gbdt_predict", _C_PREDICT)
+    with torch.cuda.device(bins_t.device):
+        rc = lib.mmlspark_gbdt_predict_quant_leafwise(
+            bins_t.data_ptr(), bins_t.stride(0), split_leaf.data_ptr(),
+            feature.data_ptr(), threshold.data_ptr(), leaf.data_ptr(),
+            out.data_ptr(), n, d, T, K, R,
+            torch.cuda.current_stream(bins_t.device).cuda_stream)
+    _raise_on(rc, lib, "gbdt_predict_quant_leafwise")
+    gbdt_predict_quant_leafwise.launches += 1
+    return out
+
+
+gbdt_predict_quant_leafwise.launches = 0

@@ -340,20 +340,23 @@ def test_cuda_device_without_a_card_raises():
         model.transform(_vec_df(x, y, DataFrame))
 
 
-def test_leafwise_requests_raise_naming_slice_4():
+def test_leafwise_mesh_and_multi_process_fits_raise_naming_item_12(
+        monkeypatch):
+    """Leaf-wise fits run on one device; the mesh-sharded builder and
+    multi-process fits wait for the parallel/ port (ROADMAP item 12)."""
     x, y = _data()
-    df = _vec_df(x, y, DataFrame)
-    for stage in (tstages.LightGBMClassifier(device="cpu"),   # auto, small n
-                  tstages.LightGBMRegressor(device="cpu").setNumLeaves(7),
-                  tstages.LightGBMClassifier(device="cpu",
-                                             growthPolicy="leafwise")):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            stage.fit(df)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        teng.fit_gbdt(x, y, teng.GBDTParams(num_leaves=7), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tstages.LightGBMClassificationModel(
-            boosterState={"kind": "leafwise"}, device="cpu").transform(df)
+    p = teng.GBDTParams(num_iterations=1, num_leaves=7, max_bin=16)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        teng.fit_gbdt(x, y, p, mesh=object(), device="cpu")
+    dist = torch.distributed
+    monkeypatch.setattr(dist, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        teng.fit_gbdt(x, y, p, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tstages.LightGBMClassifier(device="cpu", numIterations=1).fit(
+            _vec_df(x, y, DataFrame))
 
 
 def test_unported_paths_raise_naming_their_roadmap_items():
@@ -434,3 +437,30 @@ def test_auto_histograms_on_cpu_take_the_compare_path(monkeypatch):
     teng.fit_gbdt(x, y, teng.GBDTParams(num_iterations=2, max_depth=2,
                                         max_bin=15), device="cpu")
     assert calls["compare"] >= 1 and calls["node"] == 0
+
+
+@pytest.mark.parametrize("impl", ["mxu", "segment", "compare", "pallas"])
+def test_histograms_share_one_layout_and_values(impl):
+    """Every hist_impl returns the same (n_nodes, d, n_bins) values in the
+    kernel's contiguous layout, so the split search reduces and scans them
+    in one order whichever path built them."""
+    rng = np.random.default_rng(5)
+    n, d, n_nodes, n_bins = 300, 4, 3, 16
+    bins = torch.from_numpy(rng.integers(0, n_bins, (n, d)).astype(np.uint8))
+    node = torch.from_numpy(rng.integers(0, n_nodes, n).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.1, 1.0, n).astype(np.float32))
+    want_g = torch.zeros((n_nodes, d, n_bins), dtype=torch.float64)
+    want_h = torch.zeros_like(want_g)
+    for i in range(n):
+        for j in range(d):
+            want_g[node[i], j, bins[i, j].long()] += float(g[i])
+            want_h[node[i], j, bins[i, j].long()] += float(h[i])
+    hg, hh = teng._histograms(bins, bins.T.contiguous(), g, h, node,
+                              n_nodes, n_bins, impl)
+    assert hg.shape == (n_nodes, d, n_bins) and hg.is_contiguous()
+    assert hh.is_contiguous()
+    np.testing.assert_allclose(hg.numpy(), want_g.float().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(hh.numpy(), want_h.float().numpy(),
+                               rtol=1e-6, atol=1e-6)

@@ -9,9 +9,10 @@ Tolerances: the histograms at rtol 1e-5 / atol 1e-4 against the Pallas node
 histogram and atol 1e-4 against the fused one (float32 sums in another
 order; tests/test_pallas_kernels.py:191, :45); the port accumulates every
 sum in float64 and rounds once, the JAX package sums in float32. The
-quantized predict is held at atol 1e-6 against a numpy heap walk copied
-from tests/test_pallas_kernels.py:295-310 (the JAX kernel itself raises on
-this jax, which lost ``pl.load``).
+quantized predicts are held at atol 1e-6 against numpy walks copied from
+tests/test_pallas_kernels.py:295-327 (a heap descent, a split-sequence
+replay); the JAX kernels themselves raise on this jax, which lost
+``pl.load``.
 """
 
 import jax.numpy as jnp
@@ -199,6 +200,97 @@ def test_quant_predict_matches_numpy_walk(int8_leaves):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
 
 
+def _walk_leafwise(bins, split, feat, thr, leaf):
+    """numpy reference: replay the split sequence over the quantized tables
+    (tests/test_pallas_kernels.py:313-327)."""
+    n = bins.shape[0]
+    T, K, R = split.shape
+    out = np.zeros((n, K), np.float32)
+    for t in range(T):
+        for k in range(K):
+            pos = np.zeros(n, np.int64)
+            for r in range(R):
+                right = (pos == split[t, k, r]) & (
+                    bins[np.arange(n), feat[t, k, r]].astype(np.int64)
+                    > thr[t, k, r])
+                pos[right] = r + 1
+            out[:, k] += leaf[t, k][pos]
+    return out
+
+
+def _lw_tables(rng, T, K, R, d, int8_leaves):
+    """test_pallas_kernels.py:351's tables: split_leaf[t, k, r] in [0, r]
+    (round r can split any leaf made so far), tree 2 stopped after 5 rounds
+    (-1 no-op rounds), the 255 sentinel, bf16-rounded or int8-scaled leaves
+    widened to float32."""
+    from mmlspark_tpu_torch.models.gbdt.engine import quantize_leaves_int8
+    split = np.stack([np.stack([rng.integers(0, r + 1, size=T)
+                                for r in range(R)], axis=1)
+                      for _ in range(K)], axis=1).astype(np.int32)
+    split[2, :, 5:] = -1
+    feat = rng.integers(0, d, size=(T, K, R)).astype(np.uint8)
+    thr = rng.integers(0, 64, size=(T, K, R)).astype(np.uint8)
+    thr[1, 0, :3] = 255
+    leaf32 = rng.normal(size=(T, K, R + 1)).astype(np.float32)
+    if int8_leaves:
+        q, scale = quantize_leaves_int8(leaf32)
+        leaf = (q.astype(np.float32) * scale).astype(np.float32)
+    else:
+        leaf = torch.from_numpy(leaf32).to(torch.bfloat16).float().numpy()
+    return split, feat, thr, leaf
+
+
+@pytest.mark.parametrize("int8_leaves", [False, True])
+@pytest.mark.parametrize("K", [1, 3])
+def test_quant_leafwise_predict_matches_numpy_walk(int8_leaves, K):
+    """test_pallas_kernels.py:351 (T = 5, R = 9, d = 6, n = 333, nothing
+    aligned), -1 no-op rounds that never move a row, the 255 sentinel, K =
+    1 and 3, bf16 or int8-scaled leaves."""
+    rng = np.random.default_rng(11)
+    T, R, d, n = 5, 9, 6, 333
+    bins = rng.integers(0, 64, size=(n, d)).astype(np.uint8)
+    split, feat, thr, leaf = _lw_tables(rng, T, K, R, d, int8_leaves)
+    out = gk.gbdt_predict_quant_leafwise(*_t(bins.T, split, feat, thr, leaf))
+    assert out.shape == (n, K) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(),
+                               _walk_leafwise(bins, split, feat, thr, leaf),
+                               atol=1e-6)
+    # a tree whose rounds are all no-ops scores its root leaf everywhere
+    split[:] = -1
+    out = gk.gbdt_predict_quant_leafwise(*_t(bins.T, split, feat, thr, leaf))
+    np.testing.assert_allclose(out.numpy(),
+                               np.broadcast_to(leaf[:, :, 0].sum(0), (n, K)),
+                               atol=1e-6)
+
+
+def test_leafwise_wrapper_checks_its_inputs():
+    bins_t = torch.zeros((3, 10), dtype=torch.uint8)
+    sl = torch.zeros((2, 1, 7), dtype=torch.int32)
+    u8 = torch.zeros((2, 1, 7), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="R \\+ 1"):
+        gk.gbdt_predict_quant_leafwise(bins_t, sl, u8, u8,
+                                       torch.zeros((2, 1, 7)))
+    with pytest.raises(ValueError, match="disagree"):
+        gk.gbdt_predict_quant_leafwise(bins_t, sl, u8[:, :, :6], u8,
+                                       torch.zeros((2, 1, 8)))
+    big = torch.zeros((1, 1, 128), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="caps"):
+        gk.gbdt_predict_quant_leafwise(bins_t, big.int(), big, big,
+                                       torch.zeros((1, 1, 129)))
+    with pytest.raises(ValueError, match="\\(T, K, R\\)"):
+        gk.gbdt_predict_quant_leafwise(bins_t, sl[0], u8[0], u8[0],
+                                       torch.zeros((1, 8)))
+    with pytest.raises(ValueError, match="devices"):
+        gk.gbdt_predict_quant_leafwise(bins_t, sl, u8, u8,
+                                       torch.zeros((2, 1, 8),
+                                                   device="meta"))
+    # R = 127 rounds (the cap) is taken
+    cap = torch.zeros((1, 1, 127), dtype=torch.uint8)
+    out = gk.gbdt_predict_quant_leafwise(bins_t, cap.int(), cap, cap,
+                                         torch.ones((1, 1, 128)))
+    assert torch.equal(out, torch.ones((10, 1)))
+
+
 def test_kernel_wrappers_check_their_inputs():
     bins_t = torch.zeros((3, 10), dtype=torch.uint8)
     z = torch.zeros(10)
@@ -221,8 +313,11 @@ def test_kernel_wrappers_check_their_inputs():
 def test_cpu_calls_launch_nothing():
     """The launch counters count kernel launches only: the plain versions
     that CPU tensors run leave them alone."""
-    before = (gk.mxu_node_histogram.launches, gk.histogram_fused.launches,
-              gk.gbdt_predict_quant_levelwise.launches)
+    def counts():
+        return (gk.mxu_node_histogram.launches, gk.histogram_fused.launches,
+                gk.gbdt_predict_quant_levelwise.launches,
+                gk.gbdt_predict_quant_leafwise.launches)
+    before = counts()
     bins, node, g, h = _hist_inputs(8, 50, 2, 8, 2)
     gk.mxu_node_histogram(*_t(bins.T.astype(np.uint8), node, g, h),
                           n_nodes=2, n_bins=8)
@@ -230,9 +325,10 @@ def test_cpu_calls_launch_nothing():
     feat = torch.zeros((1, 1, 1), dtype=torch.uint8)
     gk.gbdt_predict_quant_levelwise(*_t(bins.T.astype(np.uint8)), feat, feat,
                                     torch.ones((1, 1, 2)), depth=1)
-    assert before == (gk.mxu_node_histogram.launches,
-                      gk.histogram_fused.launches,
-                      gk.gbdt_predict_quant_levelwise.launches)
+    gk.gbdt_predict_quant_leafwise(*_t(bins.T.astype(np.uint8)),
+                                   feat.int(), feat, feat,
+                                   torch.ones((1, 1, 2)))
+    assert before == counts()
 
 
 @pytest.mark.cuda
@@ -268,3 +364,17 @@ def test_cuda_kernels_match_plain_and_repeat_bit_for_bit():
     out = gk.gbdt_predict_quant_levelwise(bt, feat, thr, leaf, depth=5)
     assert torch.equal(out, gk.quant_levelwise_reference(bt, feat, thr, leaf,
                                                          5))
+    split, f8, t8, lf = (torch.from_numpy(a).cuda() for a in _lw_tables(
+        rng, 9, 2, 30, 7, False))
+    before = gk.gbdt_predict_quant_leafwise.launches
+    a = gk.gbdt_predict_quant_leafwise(bt, split, f8, t8, lf)
+    b = gk.gbdt_predict_quant_leafwise(bt, split, f8, t8, lf)
+    assert gk.gbdt_predict_quant_leafwise.launches == before + 2
+    assert torch.equal(a, b)
+    assert torch.equal(a, gk.quant_leafwise_reference(bt, split, f8, t8, lf))
+    # the kernel takes int32 split ids, uint8 tables and f32 leaves only
+    for bad in ((split.long(), f8, t8, lf), (split, f8.int(), t8, lf),
+                (split, f8, t8, lf.double())):
+        with pytest.raises(ValueError, match="takes int32"):
+            gk.gbdt_predict_quant_leafwise(bt, *bad)
+    assert gk.gbdt_predict_quant_leafwise.launches == before + 2
