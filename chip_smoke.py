@@ -11,15 +11,23 @@ Phases, each printing one JSON line:
    and dk/dv backward, the GBDT histograms and the GBDT predicts) with nvcc
    for sm_90a into
    ``mmlspark_tpu_torch/_build/`` (one nvcc per source, all started
-   together), with ptxas' register/spill report for each.
+   together), with ptxas' register/spill report for each; the bf16
+   forward's lines are printed apart and must show no spill and no
+   serialised wgmma.
 2. kernel — holds the forward kernel against its plain PyTorch version on
    the card at ragged, cross-attention and slice shapes (and on strided
-   views of one qkv projection, as the model passes them), and times
-   kernel, plain version and one PyTorch library call at the slice shape
-   (CUDA events, median of 20 calls, 10 for the plain version, after
-   warm-up), beside the least time the card could take for the same work.
+   views of one qkv projection, as the model passes them), and in bf16 at
+   the lengths where its 128-row and 128-key tiles and TMA's boxes meet
+   the data (``TILE_EDGES``, both head dims and masks, views at ragged T).
+   It times the kernel on contiguous operands and on qkv views, and one
+   PyTorch library call, in three alternating rounds at the slice shape,
+   and the plain version, beside the least time the card could take for
+   the same work, the achieved TFLOP/s and the share of that bound. Every
+   time in this script is CUDA events around 20 back-to-back calls (10
+   for plain versions) over the count, the median of three such rounds,
+   after warm-up.
 3. kernel_bwd — the same for the dq and dk/dv backward kernels over the
-   same cases (per gradient, max |kernel - plain| / max(1, max |plain|)
+   same cases but the tile edges (per gradient, max |kernel - plain| / max(1, max |plain|)
    and ||kernel - plain||_2 / ||plain||_2), timing each kernel, the wrapper, the plain version and the backward of
    ``scaled_dot_product_attention`` at the slice shape.
 4. kernel_gbdt — the node histogram, the fused histogram and the quantized
@@ -162,20 +170,26 @@ def check(ok: bool, msg: str):
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events."""
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            rounds: int = 3) -> float:
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``iters`` calls launched back to back, over the count; the median of
+    ``rounds`` such runs, after warm-up. Back to back, the host's launch
+    work overlaps the device's, as in a pipeline; timing one synchronised
+    call instead adds the wrapper's host time to the kernel's."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         a.record()
-        fn()
+        for _ in range(iters):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
 
 
@@ -217,11 +231,19 @@ def attention_bwd_bounds(B, H, Tq, Tk, D, causal, dtype_name) -> dict:
                          reads + 2 * esize * B * H * Tk * D, dtype_name)}
 
 
-def attention_cases(torch) -> list:
+# (Tq, Tk) where the bf16 forward's 128-row query tiles, 128-key K/V tiles
+# and TMA's zero-filled boxes past the last row meet the data
+TILE_EDGES = ((1, 1), (1, 129), (127, 127), (128, 128), (129, 129),
+              (129, 300), (300, 129))
+
+
+def attention_cases(torch, tile_edges: bool = True) -> list:
     """(B, Tq, Tk, H, D, causal, dtype, qkv_views): both types and head
     dims, both masks, ragged and cross-attention lengths, strided views of
-    one (B, T, 3H, D) projection as the model passes them, and last the
-    training and serving slices' shape."""
+    one (B, T, 3H, D) projection as the model passes them, with
+    ``tile_edges`` the bf16 forward's tile edges (also as views at the
+    ragged self-attention lengths), and last the training and serving
+    slices' shape."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for D in (64, 128):
@@ -229,6 +251,12 @@ def attention_cases(torch) -> list:
                 cases.append((2, 1000, 1000, 2, D, causal, dtype, False))
                 cases.append((1, 333, 1000, 2, D, causal, dtype, False))
                 cases.append((2, 1000, 1000, 2, D, causal, dtype, True))
+    for D in (64, 128) if tile_edges else ():
+        for causal in (False, True):
+            for Tq, Tk in TILE_EDGES:
+                cases.append((2, Tq, Tk, 2, D, causal, torch.bfloat16, False))
+            for T in (129, 300):
+                cases.append((2, T, T, 2, D, causal, torch.bfloat16, True))
     cases.append((8, SEQ, SEQ, 4, 128, True, torch.bfloat16, False))
     return cases
 
@@ -242,15 +270,44 @@ def random_qkv(torch, gen, B, Tq, Tk, H, D, dtype, views):
     return rnd(Tq), rnd(Tk), rnd(Tk)
 
 
+def ptxas_lines(report: str, kernel: str) -> list:
+    """ptxas' lines about the entry functions whose (mangled) name holds
+    ``kernel``: registers, barriers, stack, spills, and any wgmma
+    serialisation it reports."""
+    lines, inside = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif "Function properties for" in line:
+            inside = kernel in line
+        if inside or ("wgmma" in line and kernel in line):
+            lines.append(line.strip())
+    return lines
+
+
+def spill_free(lines: list, entries: int) -> bool:
+    """Whether ptxas reported ``entries`` entry functions in ``lines`` (one
+    per head dim), none spilling and none with serialised wgmma."""
+    spills = [ln for ln in lines if "spill" in ln]
+    return (len(spills) == entries
+            and all(" 0 bytes spill stores" in ln
+                    and " 0 bytes spill loads" in ln for ln in spills)
+            and not any("serialized" in ln for ln in lines))
+
+
 def phase_build(torch, env):
     from mmlspark_tpu_torch.ops import _build
     t0 = time.perf_counter()
     report = _build.build_all()
+    fwd = ptxas_lines(report["flash_attention_fwd"]["ptxas"], "flash_fwd_bf16")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"path": v["path"], "ptxas": v["ptxas"]}
                       for k, v in report.items()},
+          "flash_fwd_bf16_ptxas": fwd,
           "gpu": env.gpu_name_and_power_limit(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    check(spill_free(fwd, 2), f"the bf16 forward spills, serialises its "
+          f"wgmma, or was not reported: {fwd}")
 
 
 def phase_kernel(torch):
@@ -286,17 +343,36 @@ def phase_kernel(torch):
 
     B, Tq, Tk, H, D, causal, dtype, _ = cases[-1]
     q, k, v = random_qkv(torch, gen, B, Tq, Tk, H, D, dtype, False)
-    kernel_ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
-        q, k, v, causal=True), iters=10)
+    # the same shape as the model hands it over: views of one projection
+    qv, kv, vv = random_qkv(torch, gen, B, Tq, Tk, H, D, dtype, True)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(torch, lambda: sdpa(qh, kh, vh, is_causal=True))
+    # kernel (contiguous, views) and library in turns, the median of three
+    # rounds each, so a clock that drifts during the phase meets all three
+    rounds = {"kernel": [], "views": [], "library": []}
+    for _ in range(3):
+        rounds["kernel"].append(cuda_ms(
+            torch, lambda: flash_attention_fwd(q, k, v, causal=True),
+            rounds=1))
+        rounds["views"].append(cuda_ms(
+            torch, lambda: flash_attention_fwd(qv, kv, vv, causal=True),
+            rounds=1))
+        rounds["library"].append(cuda_ms(
+            torch, lambda: sdpa(qh, kh, vh, is_causal=True), rounds=1))
+    kernel_ms, views_ms, library_ms = (statistics.median(rounds[n]) for n in
+                                       ("kernel", "views", "library"))
+    plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
+        q, k, v, causal=True), iters=10)
     bound = attention_bound_ms(B, H, Tq, Tk, D, causal, "bfloat16")
     timing = {"shape": [B, Tq, H, D], "causal": causal, "dtype": "bfloat16",
               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "library": "torch sdpa",
-              "achieved_tflops": bound["flops"] / kernel_ms / 1e9, **bound}
+              "achieved_tflops": bound["flops"] / kernel_ms / 1e9,
+              "bound_share": bound["bound_ms"] / kernel_ms,
+              "qkv_views_kernel_ms": views_ms,
+              "qkv_views_achieved_tflops": bound["flops"] / views_ms / 1e9,
+              "qkv_views_bound_share": bound["bound_ms"] / views_ms,
+              "rounds_ms": rounds, **bound}
     emit({"phase": "kernel", "cases": results, "max_out_err": worst["out"],
           "max_lse_err": worst["lse"], "timing": timing})
     return worst, timing
@@ -314,7 +390,9 @@ def phase_kernel_bwd(torch):
     worst = {"dq": 0.0, "dkv": 0.0, "dq_abs": 0.0, "dkv_abs": 0.0,
              "dq_l2": 0.0, "dkv_l2": 0.0}
     results = []
-    cases = attention_cases(torch)
+    # not the tile edges: their single-key rows have dq and dk zero in
+    # exact arithmetic, where a relative L2 error has no meaning
+    cases = attention_cases(torch, tile_edges=False)
     for B, Tq, Tk, H, D, causal, dtype, packed in cases:
         q, k, v = random_qkv(torch, gen, B, Tq, Tk, H, D, dtype, packed)
         do = torch.randn((B, Tq, H, D), generator=gen, device="cuda",
@@ -574,7 +652,7 @@ def phase_kernel_gbdt(torch):
               f"{case}")
         worst["predict_lw"] = max(worst["predict_lw"], err)
 
-    # timing at the slice shapes (CUDA events, median of 20 after warm-up)
+    # timing at the slice shapes (cuda_ms: back-to-back calls, after warm-up)
     timing = {}
     bins_t, node, g, h = node_hist_case(torch, gen, F, N, 16, NB, False)
     ids = ((node.long()[None, :] * F

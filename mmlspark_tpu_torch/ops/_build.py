@@ -59,8 +59,9 @@ def build_all(names: Optional[Sequence[str]] = None) -> dict:
     """Compile every named kernel (default: all of ``csrc/``) whose library
     is missing, one ``nvcc`` process per source, all started together.
     Returns {name: {"path", "seconds", "ptxas"}}; ``ptxas`` holds the
-    compiler's register/shared-memory/spill report (empty when the library
-    was already built). Raises RuntimeError naming every failed source."""
+    compiler's register/shared-memory/spill report, kept beside the library
+    (``.ptxas``) so a library built earlier still has it. Raises
+    RuntimeError naming every failed source."""
     names = list(names or kernel_names())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -69,7 +70,9 @@ def build_all(names: Optional[Sequence[str]] = None) -> dict:
     for name in names:
         so = library_path(name)
         if so.exists():
-            report[name] = {"path": str(so), "seconds": 0.0, "ptxas": ""}
+            log = so.with_suffix(".ptxas")
+            report[name] = {"path": str(so), "seconds": 0.0,
+                            "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -82,10 +85,12 @@ def build_all(names: Optional[Sequence[str]] = None) -> dict:
         if proc.returncode != 0:
             failures.append(f"{name}.cu (exit {proc.returncode}):\n{err}{out}")
             continue
+        ptxas = (err + out).strip()
+        so.with_suffix(".ptxas").write_text(ptxas)
         os.replace(tmp, so)
         report[name] = {"path": str(so),
                         "seconds": time.perf_counter() - t0,
-                        "ptxas": (err + out).strip()}
+                        "ptxas": ptxas}
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return report

@@ -3,11 +3,12 @@
 // and are compiled into their own library, so everything here has internal
 // linkage.
 //
-// The bf16 kernels run 4 warps of mma.sync.m16n8k16 (bf16 in, f32
+// The bf16 backward kernels run 4 warps of mma.sync.m16n8k16 (bf16 in, f32
 // accumulate), each warp owning 16 rows of the block's tile. Operand tiles
 // sit in shared memory with rows of D + 8 elements (16-byte rows whose
 // ldmatrix row addresses hit 32 distinct banks), copied there with cp.async.
-// Two products cover every matrix multiply of the forward and backward:
+// Two products cover every matrix multiply of the backward (the bf16
+// forward runs wgmma, flash_attention_fwd.cu):
 //   mma_abt: acc += A B^T, A and B both row-major tiles in shared memory
 //            (S = Q K^T, dP = dO V^T, and their transposes);
 //   mma_pb:  acc += P B, P a score accumulator kept in registers and
@@ -22,6 +23,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"  // smem_addr
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -33,10 +36,6 @@ constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
 struct Rows {
   long long sb, st, sh;  // strides of batch, time and head, in elements
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // four 8x8 bf16 matrices, one per quarter-warp of row addresses; lane l
 // gets row l/4, columns 2(l%4) and 2(l%4)+1 of each (.trans: the transpose)
@@ -77,6 +76,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// 2^x in one MUFU.EX2 (subnormal results flush to 0, as no softmax weight
+// that small moves a float32 sum)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -113,7 +120,7 @@ __device__ __forceinline__ void stage_rows_async(__nv_bfloat16* dst,
 // 2*(lane%4) + (e&1). ldmatrix_x4 gives A's fragment for one 16-wide
 // k-step and the B fragments of two n-tiles, matrices (B rows +0..7 |
 // +8..15) x (k +0..7 | +8..15). The k-steps run in order 0 .. D/16-1 in
-// every caller, so the backward recomputes exactly the forward's scores.
+// both backward kernels, so dq and dk/dv recompute the same scores.
 template <int D, int NT>
 __device__ __forceinline__ void mma_abt(float acc[][4],
                                         const __nv_bfloat16* As,

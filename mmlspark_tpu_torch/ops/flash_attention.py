@@ -112,12 +112,45 @@ def _scores(qb, kb, causal: bool, scale: float, acc):
     return s
 
 
-def _kernel_readable(x) -> bool:
-    """Whether the kernel can read ``x`` in place: contiguous head dim, and
-    every row start 16-byte aligned (its cp.async copies move 16 bytes)."""
+#: rows of a query tile and keys of a K/V tile in the bf16 forward kernel,
+#: and the bf16 values of D in one TMA box (one 128-byte swizzled row)
+TMA_TILE, TMA_BOX = 128, 64
+
+
+def _strides(x):
+    """(batch, time, head) strides of a (B, T, H, D) operand, in elements,
+    as the kernels take them: a dim of extent 1 is never stepped, so its
+    stride (which PyTorch leaves arbitrary, and ``contiguous()`` keeps) is
+    replaced by the packed one."""
+    B, T, H, D = x.shape
+    packed = (T * H * D, H * D, D)
+    return tuple(s if n > 1 else p
+                 for s, n, p in zip(x.stride()[:3], (B, T, H), packed))
+
+
+def _tma_geometry(x) -> dict:
+    """The 4-D tensor map the bf16 forward kernel encodes for operand ``x``
+    (B, T, H, D) with ``cuTensorMapEncodeTiled`` (flash_attention_fwd.cu,
+    ``launch_bf16``): dims innermost first (D, H, T, B), byte strides of
+    dims 1-3, and a box of 64 values of D x 1 head x 128 time steps x 1
+    batch, so D is read as D / 64 boxes."""
+    B, T, H, D = x.shape
+    sb, st, sh = _strides(x)
     esize = x.element_size()
+    return {"dims": (D, H, T, B),
+            "strides": (sh * esize, st * esize, sb * esize),
+            "box": (TMA_BOX, 1, TMA_TILE, 1),
+            "boxes": D // TMA_BOX}
+
+
+def _kernel_readable(x) -> bool:
+    """Whether the kernels can read ``x`` in place: D contiguous, the base
+    16-byte aligned and every stepped stride a multiple of 16 bytes (TMA's
+    rule for a tensor map, and the forward's float32 and the backward's
+    cp.async copies of 16 bytes)."""
     return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all((s * esize) % 16 == 0 for s in x.stride()[:3]))
+            and all(s % 16 == 0 and s < 2 ** 40
+                    for s in _tma_geometry(x)["strides"]))
 
 
 def _check_cuda(q, k, name: str):
@@ -142,8 +175,12 @@ def _check_cuda(q, k, name: str):
 def _readable(*xs):
     """Each operand as the kernels read it: in place through its strides
     (the model's qkv split hands over views of one projection), or a packed
-    copy when its rows are not 16-byte aligned."""
-    return tuple(x if _kernel_readable(x) else x.contiguous() for x in xs)
+    copy when TMA cannot read it (a base or stride not 16-byte aligned). The
+    copy is a fresh allocation: ``contiguous()`` would hand back a packed
+    tensor that starts off alignment unchanged."""
+    return tuple(x if _kernel_readable(x)
+                 else x.clone(memory_format=torch.contiguous_format)
+                 for x in xs)
 
 
 def _raise_on(rc: int, lib, what: str):
@@ -197,8 +234,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mmlspark_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], B, H, Tq, Tk, D, int(bool(causal)),
+            lse.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
+            B, H, Tq, Tk, D, int(bool(causal)),
             float(scale), _DTYPE_CODE[q.dtype], stream)
     _raise_on(rc, lib, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
@@ -278,8 +315,8 @@ class _BwdLaunch:
         self.ins = tuple(x.data_ptr() for x in (self.q, self.k, self.v,
                                                  self.do, self.lse,
                                                  self.delta))
-        self.shape = (*self.q.stride()[:3], *self.k.stride()[:3],
-                      *self.v.stride()[:3], *self.do.stride()[:3],
+        self.shape = (*_strides(self.q), *_strides(self.k),
+                      *_strides(self.v), *_strides(self.do),
                       B, H, Tq, Tk, D, int(bool(causal)), float(scale),
                       _DTYPE_CODE[q.dtype])
 
