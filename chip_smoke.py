@@ -11,9 +11,10 @@ Phases, each printing one JSON line:
    and dk/dv backward, the GBDT histograms and the GBDT predicts) with nvcc
    for sm_90a into
    ``mmlspark_tpu_torch/_build/`` (one nvcc per source, all started
-   together), with ptxas' register/spill report for each; the bf16
-   forward's lines are printed apart and must show no spill and no
-   serialised wgmma.
+   together), with ptxas' register/spill report for each; the lines of the
+   three warp-specialised wgmma kernels (the bf16 forward, dq and dk/dv,
+   ``WGMMA_ENTRIES``) are printed apart and must show no spill and no
+   serialised wgmma at either head dim.
 2. kernel — holds the forward kernel against its plain PyTorch version on
    the card at ragged, cross-attention and slice shapes (and on strided
    views of one qkv projection, as the model passes them), and in bf16 at
@@ -26,10 +27,17 @@ Phases, each printing one JSON line:
    time in this script is CUDA events around 20 back-to-back calls (10
    for plain versions) over the count, the median of three such rounds,
    after warm-up.
-3. kernel_bwd — the same for the dq and dk/dv backward kernels over the
-   same cases but the tile edges (per gradient, max |kernel - plain| / max(1, max |plain|)
-   and ||kernel - plain||_2 / ||plain||_2), timing each kernel, the wrapper, the plain version and the backward of
-   ``scaled_dot_product_attention`` at the slice shape.
+3. kernel_bwd — first the two wgmma forms the bf16 backward adds, on one
+   tile against ``torch.matmul`` (``wgmma_probe``); then the dq and dk/dv
+   backward kernels over the same cases, with the backward's 64-row tile
+   edges too (``BWD_TILE_EDGES``, views also at T = 65), per gradient
+   max |kernel - plain| / max(1, max |plain|) and
+   ||kernel - plain||_2 / ||plain||_2 (the latter skipped, and named, only
+   for the gradients that are zero in exact arithmetic: rows that see one
+   key); timing each kernel, the wrapper, the plain version and the
+   backward of ``scaled_dot_product_attention`` at the slice shape, with D
+   as the dq kernel writes it held against the plain row dot and a repeat
+   that must give the same bits.
 4. kernel_gbdt — the node histogram, the fused histogram and the quantized
    level-wise and leaf-wise predicts against their plain versions at edge
    shapes (ragged rows, odd feature counts, 1-64 nodes, out-of-range node
@@ -134,6 +142,11 @@ TOL_OUT = {"bfloat16": 2e-2, "float32": 1e-4}
 # most 2.3e-4 in bf16 and 2.4e-7 in f32 on an H100)
 TOL_BWD_L2 = {"bfloat16": 2e-3, "float32": 2e-6}
 TOL_LSE = 1e-3
+# the wgmma probe against torch.matmul (float32 sums of the same bf16
+# products; a wrong descriptor reads O(1)); D = rowsum(dO * O) as the dq
+# kernel writes it against the plain row dot (the same products summed in
+# another order), both max |error| over max |plain|
+TOL_PROBE, TOL_DELTA = 1e-3, 1e-5
 TOL_SLICE = 5e-2
 # the GBDT slice: bench_gbdt.py:15-20 (1M x 28, binary, 100 trees of depth
 # 5, maxBin 255), LightGBMClassifier's defaults on >= 262144 rows
@@ -235,15 +248,17 @@ def attention_bwd_bounds(B, H, Tq, Tk, D, causal, dtype_name) -> dict:
 # and TMA's zero-filled boxes past the last row meet the data
 TILE_EDGES = ((1, 1), (1, 129), (127, 127), (128, 128), (129, 129),
               (129, 300), (300, 129))
+# and where the bf16 backward's 64-row ring tiles and boxes meet it (its
+# 128-row stationary tiles meet it at TILE_EDGES)
+BWD_TILE_EDGES = TILE_EDGES + ((63, 63), (64, 64), (65, 65), (1, 65))
 
 
-def attention_cases(torch, tile_edges: bool = True) -> list:
+def attention_cases(torch, edges=TILE_EDGES, view_lengths=(129, 300)) -> list:
     """(B, Tq, Tk, H, D, causal, dtype, qkv_views): both types and head
     dims, both masks, ragged and cross-attention lengths, strided views of
-    one (B, T, 3H, D) projection as the model passes them, with
-    ``tile_edges`` the bf16 forward's tile edges (also as views at the
-    ragged self-attention lengths), and last the training and serving
-    slices' shape."""
+    one (B, T, 3H, D) projection as the model passes them, in bf16 the
+    (Tq, Tk) tile ``edges`` and views at the ragged self-attention
+    ``view_lengths``, and last the training and serving slices' shape."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for D in (64, 128):
@@ -251,14 +266,21 @@ def attention_cases(torch, tile_edges: bool = True) -> list:
                 cases.append((2, 1000, 1000, 2, D, causal, dtype, False))
                 cases.append((1, 333, 1000, 2, D, causal, dtype, False))
                 cases.append((2, 1000, 1000, 2, D, causal, dtype, True))
-    for D in (64, 128) if tile_edges else ():
+    for D in (64, 128):
         for causal in (False, True):
-            for Tq, Tk in TILE_EDGES:
+            for Tq, Tk in edges:
                 cases.append((2, Tq, Tk, 2, D, causal, torch.bfloat16, False))
-            for T in (129, 300):
+            for T in view_lengths:
                 cases.append((2, T, T, 2, D, causal, torch.bfloat16, True))
     cases.append((8, SEQ, SEQ, 4, 128, True, torch.bfloat16, False))
     return cases
+
+
+def one_key_rows(Tq, Tk, causal) -> bool:
+    """Whether every query row sees exactly one key: then P = 1 on it,
+    dP = D, and dq and dk are zero in exact arithmetic (only rounding
+    noise is left, where a relative L2 error has no meaning)."""
+    return Tk == 1 or (causal and Tq == 1)
 
 
 def random_qkv(torch, gen, B, Tq, Tk, H, D, dtype, views):
@@ -280,7 +302,12 @@ def ptxas_lines(report: str, kernel: str) -> list:
             inside = kernel in line
         elif "Function properties for" in line:
             inside = kernel in line
-        if inside or ("wgmma" in line and kernel in line):
+        # a wgmma warning names its function: it belongs to that one alone,
+        # wherever it falls among the other functions' lines
+        if "wgmma" in line and "function '" in line:
+            if kernel in line:
+                lines.append(line.strip())
+        elif inside:
             lines.append(line.strip())
     return lines
 
@@ -295,19 +322,28 @@ def spill_free(lines: list, entries: int) -> bool:
             and not any("serialized" in ln for ln in lines))
 
 
+# the warp-specialised wgmma kernels whose ptxas lines the build phase
+# holds: (library, entry name), each at both head dims
+WGMMA_ENTRIES = (("flash_attention_fwd", "flash_fwd_bf16"),
+                 ("flash_attention_bwd", "flash_bwd_dq_bf16"),
+                 ("flash_attention_bwd", "flash_bwd_dkv_bf16"))
+
+
 def phase_build(torch, env):
     from mmlspark_tpu_torch.ops import _build
     t0 = time.perf_counter()
     report = _build.build_all()
-    fwd = ptxas_lines(report["flash_attention_fwd"]["ptxas"], "flash_fwd_bf16")
+    lines = {entry: ptxas_lines(report[lib]["ptxas"], entry)
+             for lib, entry in WGMMA_ENTRIES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"path": v["path"], "ptxas": v["ptxas"]}
                       for k, v in report.items()},
-          "flash_fwd_bf16_ptxas": fwd,
+          **{f"{entry}_ptxas": ln for entry, ln in lines.items()},
           "gpu": env.gpu_name_and_power_limit(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    check(spill_free(fwd, 2), f"the bf16 forward spills, serialises its "
-          f"wgmma, or was not reported: {fwd}")
+    for entry, ln in lines.items():
+        check(spill_free(ln, 2), f"{entry} spills, serialises its wgmma, or "
+              f"was not reported at both head dims: {ln}")
 
 
 def phase_kernel(torch):
@@ -378,21 +414,45 @@ def phase_kernel(torch):
     return worst, timing
 
 
+def wgmma_probe(torch, gen) -> dict:
+    """The two wgmma forms the bf16 backward adds, on one tile against
+    torch.matmul in float32 at both head dims: s = a b^T (SS m64n64k16, as
+    S = Q K^T reads its operands) and o = bf16(s) b (RS with b MN-major over
+    64-row boxes, as dQ += dS K reads K). Max |error| over max |plain|."""
+    from mmlspark_tpu_torch.ops.flash_attention import _wgmma_tile_probe
+    errs = {}
+    for D in (64, 128):
+        a, b = (torch.randn((64, D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        s, o = _wgmma_tile_probe(a, b)
+        s_ref = a.float() @ b.float().T
+        o_ref = s.to(torch.bfloat16).float() @ b.float()
+        torch.cuda.synchronize()
+        errs[D] = {n: ((x - r).abs().max() / r.abs().max()).item()
+                   for n, x, r in (("s", s, s_ref), ("o", o, o_ref))}
+        check(max(errs[D].values()) <= TOL_PROBE,
+              f"the wgmma probe disagrees with torch.matmul at D = {D}: "
+              f"{errs[D]}")
+    return errs
+
+
 def phase_kernel_bwd(torch):
-    """The dq and dk/dv kernels against their plain version over the
-    forward phase's cases, then timed at the training slice's shape."""
+    """The wgmma probe; the dq and dk/dv kernels against their plain version
+    over the forward phase's cases and the backward's tile edges, then
+    timed at the training slice's shape, with D as the dq kernel writes it
+    against the plain row dot and a repeat that must give the same bits."""
     from mmlspark_tpu_torch.ops.flash_attention import (
-        _BwdLaunch, flash_attention_bwd, flash_attention_bwd_reference,
-        flash_attention_fwd)
+        _BwdLaunch, _row_dot, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    probe = wgmma_probe(torch, gen)
     worst = {"dq": 0.0, "dkv": 0.0, "dq_abs": 0.0, "dkv_abs": 0.0,
              "dq_l2": 0.0, "dkv_l2": 0.0}
     results = []
-    # not the tile edges: their single-key rows have dq and dk zero in
-    # exact arithmetic, where a relative L2 error has no meaning
-    cases = attention_cases(torch, tile_edges=False)
+    cases = attention_cases(torch, edges=BWD_TILE_EDGES,
+                            view_lengths=(65, 129, 300))
     for B, Tq, Tk, H, D, causal, dtype, packed in cases:
         q, k, v = random_qkv(torch, gen, B, Tq, Tk, H, D, dtype, packed)
         do = torch.randn((B, Tq, H, D), generator=gen, device="cuda",
@@ -410,26 +470,31 @@ def phase_kernel_bwd(torch):
         l2 = {n: ((g.float() - r.float()).norm()
                   / r.float().norm().clamp_min(1e-30)).item()
               for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+        # the relative L2 gate skips only gradients zero in exact arithmetic
+        skipped = ["dq", "dk"] if one_key_rows(Tq, Tk, causal) else []
         name = str(dtype).replace("torch.", "")
         case = {"B": B, "Tq": Tq, "Tk": Tk, "H": H, "D": D,
                 "causal": causal, "dtype": name, "qkv_views": packed,
                 "dq_err": err["dq"], "dk_err": err["dk"],
                 "dv_err": err["dv"], "dq_l2": l2["dq"], "dk_l2": l2["dk"],
-                "dv_l2": l2["dv"]}
+                "dv_l2": l2["dv"], "l2_skipped": skipped}
         results.append(case)
         check(all(g.shape == x.shape and g.dtype == x.dtype
                   for g, x in zip(got, (q, k, v))),
               f"backward output shapes/types {case}")
         check(all(e <= TOL_OUT[name] for e in err.values())
-              and all(e <= TOL_BWD_L2[name] for e in l2.values()),
+              and all(e <= TOL_BWD_L2[name] for n, e in l2.items()
+                      if n not in skipped),
               f"backward kernels disagree with their plain version: {case}")
         worst["dq"] = max(worst["dq"], err["dq"])
         worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
         worst["dq_abs"] = max(worst["dq_abs"], abs_err["dq"])
         worst["dkv_abs"] = max(worst["dkv_abs"], abs_err["dk"],
                                abs_err["dv"])
-        worst["dq_l2"] = max(worst["dq_l2"], l2["dq"])
-        worst["dkv_l2"] = max(worst["dkv_l2"], l2["dk"], l2["dv"])
+        worst["dq_l2"] = max([worst["dq_l2"]] + [
+            l2[n] for n in ("dq",) if n not in skipped])
+        worst["dkv_l2"] = max([worst["dkv_l2"]] + [
+            l2[n] for n in ("dk", "dv") if n not in skipped])
         del q, k, v, do, out, lse, got, ref
 
     B, Tq, Tk, H, D, causal, dtype, _ = cases[-1]
@@ -439,9 +504,21 @@ def phase_kernel_bwd(torch):
     out, lse = flash_attention_fwd(q, k, v, causal=True)
     call = _BwdLaunch(q, k, v, out, lse, do, True, 1.0 / D ** 0.5)
     dq_ms = cuda_ms(torch, call.dq_kernel)
+    # D as the dq kernel wrote it (the dk/dv kernel reads it) against the
+    # plain row dot: float32 sums of the same products in another order
+    plain_delta = _row_dot(do, out)
+    delta_err = ((call.delta - plain_delta).abs().max()
+                 / plain_delta.abs().max()).item()
+    check(delta_err <= TOL_DELTA,
+          f"the dq kernel's D differs from the plain row dot: {delta_err}")
     dkv_ms = cuda_ms(torch, call.dkv_kernel)
     total_ms = cuda_ms(torch, lambda: flash_attention_bwd(
         q, k, v, out, lse, do, causal=True))
+    first, second = (flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+                     for _ in range(2))
+    repeat_same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(repeat_same, "two backward calls on the same inputs differ")
+    del first, second
     plain_ms = cuda_ms(torch, lambda: flash_attention_bwd_reference(
         q, k, v, out, lse, do, causal=True), iters=10)
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -458,8 +535,11 @@ def phase_kernel_bwd(torch):
               "library": "torch sdpa backward (dq, dk, dv together)",
               "dq_bound": bounds["dq"], "dkv_bound": bounds["dkv"],
               "dq_tflops": bounds["dq"]["flops"] / dq_ms / 1e9,
-              "dkv_tflops": bounds["dkv"]["flops"] / dkv_ms / 1e9}
-    emit({"phase": "kernel_bwd", "cases": results,
+              "dkv_tflops": bounds["dkv"]["flops"] / dkv_ms / 1e9,
+              "dq_bound_share": bounds["dq"]["bound_ms"] / dq_ms,
+              "dkv_bound_share": bounds["dkv"]["bound_ms"] / dkv_ms,
+              "delta_rel_err": delta_err, "bit_identical_repeat": repeat_same}
+    emit({"phase": "kernel_bwd", "wgmma_probe": probe, "cases": results,
           "max_dq_err": worst["dq"], "max_dkv_err": worst["dkv"],
           "max_dq_l2": worst["dq_l2"], "max_dkv_l2": worst["dkv_l2"],
           "timing": timing})

@@ -95,15 +95,6 @@ struct alignas(1024) FwdSmem {
       v_empty[STAGES];
 };
 
-// the j-th tile of this block, numbered heaviest first (every head's last
-// query tile, then the one before), dealt to the blocks in a snake so each
-// block's total causal work comes out even; -1 past the last
-__device__ __forceinline__ int tile_of(int j, int n_tiles) {
-  const int G = gridDim.x;
-  const int i = j * G + ((j & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
-  return i < n_tiles ? i : -1;
-}
-
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
@@ -538,15 +529,10 @@ int launch_bf16(const void* q, const void* k, const void* v, Rows ql, Rows kl,
   const Rows layout[4] = {ql, kl, vl,
                           Rows{(long long)Tq * H * D, (long long)H * D, D}};
   const int len[4] = {Tq, Tk, Tk, Tq};
-  const cuuint32_t rows[4] = {TILE, TILE, TILE, 64};
+  const int rows[4] = {TILE, TILE, TILE, 64};
   for (int i = 0; i < 4; ++i) {
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H,
-                                (cuuint64_t)len[i], (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)layout[i].sh * 2,
-                                   (cuuint64_t)layout[i].st * 2,
-                                   (cuuint64_t)layout[i].sb * 2};
-    const cuuint32_t box[4] = {BOX, 1, rows[i], 1};
-    const int rc = encode_bf16_4d(&maps[i], base[i], dims, strides, box);
+    const int rc = encode_operand(&maps[i], base[i], layout[i], B, H, len[i],
+                                  D, rows[i]);
     if (rc != 0) return TMA_ENCODE_FAILED + rc;
   }
   const size_t smem = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
@@ -555,13 +541,8 @@ int launch_bf16(const void* q, const void* k, const void* v, Rows ql, Rows kl,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   // a persistent grid: one block per SM, each walking its share of tiles
-  const int n_tiles = (Tq + TILE - 1) / TILE * B * H;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  const int grid = n_tiles < sms ? n_tiles : sms;
+  const int grid = persistent_grid((Tq + TILE - 1) / TILE * B * H, &err);
+  if (err != cudaSuccess) return (int)err;
   flash_fwd_bf16<D><<<grid, 3 * WG, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse), B * H, H,
       Tq, Tk, causal, scale);

@@ -19,6 +19,8 @@
 //     with wgmma's transpose bit): sbo = 1024 (the next 8 rows of K), lbo =
 //     the bytes to the box holding the next 64 columns; a 16-deep k-step
 //     adds 16 rows, 2048 bytes.
+// A tile of 128 rows may be loaded as two boxes of 64 rows, the second
+// 8192 bytes after the first: the same bytes as one 128-row box.
 
 #pragma once
 
@@ -30,6 +32,17 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------- persistent grid
+
+// the j-th tile of this block in a persistent grid (one block per SM):
+// tiles are numbered heaviest first, and dealt to the blocks in a snake so
+// each block's total causal work comes out even; -1 past the last
+__device__ __forceinline__ int tile_of(int j, int n_tiles) {
+  const int G = gridDim.x;
+  const int i = j * G + ((j & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return i < n_tiles ? i : -1;
 }
 
 // ------------------------------------------------------------ mbarriers
@@ -202,6 +215,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 64, f32) (+)= A B^T: A (64 x 16) and B (64 x 16) bf16 in shared
+// memory, both K-major (their descriptors); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 128, f32) += A B: A (64 x 16) bf16 in registers (the fragment
 // layout of a score accumulator's two n8 tiles), B (16 x 128) bf16 in shared
 // memory, MN-major (wgmma's transpose bit); scale_d 0 overwrites d
@@ -272,6 +308,17 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   const cuuint32_t*, CUtensorMapInterleave,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
+
+// the grid of a persistent kernel: one block per SM, or one per tile if
+// fewer; *err holds the runtime's error, if any
+inline int persistent_grid(int n_tiles, cudaError_t* err) {
+  int dev = 0, sms = 0;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev)) != cudaSuccess)
+    return 0;
+  return n_tiles < sms ? n_tiles : sms;
+}
 
 inline EncodeTiledFn encode_tiled() {
   static const EncodeTiledFn fn = [] {

@@ -12,9 +12,11 @@ All in the JAX package's (B, T, H, D) layout:
   ``flash_attention_fwd.launches`` counts kernel launches and nothing else.
 * :func:`flash_attention_bwd` — the backward kernel wrapper, returning
   ``(dq, dk, dv)``. On CUDA tensors it launches the two kernels of
-  ``csrc/flash_attention_bwd.cu`` (dq, then dk/dv) or raises; on CPU tensors
-  it runs the plain version. ``flash_attention_bwd.launches_dq`` and
-  ``.launches_dkv`` count the launches of each.
+  ``csrc/flash_attention_bwd.cu`` (dq, then dk/dv; in bf16 the dq kernel
+  also takes D = rowsum(dO * O) and hands it to the dk/dv kernel) or
+  raises; on CPU tensors it runs the plain version.
+  ``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` count the
+  launches of each.
 * :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   — the plain PyTorch versions of the same functions, with the kernels'
   masks, rounding points and lse semantics.
@@ -52,16 +54,24 @@ _C_FUNCTIONS = {
     "mmlspark_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _C_FUNCTIONS_BWD = {
-    "mmlspark_flash_attention_bwd_dq": (
+    "mmlspark_flash_attention_bwd_encode": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "mmlspark_flash_attention_bwd_dkv": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 5),
+    "mmlspark_flash_attention_bwd_dq": (
         ctypes.c_int,
         [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "mmlspark_flash_attention_bwd_dkv": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "mmlspark_wgmma_tile_probe": (
+        ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]),
     "mmlspark_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+#: bytes of the bf16 backward's seven tensor maps (q, k, v, dO and out read,
+#: dk and dv written), one ``CUtensorMap`` of 128 bytes each
+_BWD_MAPS_BYTES = 7 * 128
 
 
 def _check_qkv(q, k, v):
@@ -115,6 +125,9 @@ def _scores(qb, kb, causal: bool, scale: float, acc):
 #: rows of a query tile and keys of a K/V tile in the bf16 forward kernel,
 #: and the bf16 values of D in one TMA box (one 128-byte swizzled row)
 TMA_TILE, TMA_BOX = 128, 64
+#: rows of a TMA box in the bf16 backward kernels: their ring tiles are 64
+#: rows, and a 128-row stationary tile is loaded as two boxes
+TMA_BWD_ROWS = 64
 
 
 def _strides(x):
@@ -128,28 +141,29 @@ def _strides(x):
                  for s, n, p in zip(x.stride()[:3], (B, T, H), packed))
 
 
-def _tma_geometry(x) -> dict:
-    """The 4-D tensor map the bf16 forward kernel encodes for operand ``x``
-    (B, T, H, D) with ``cuTensorMapEncodeTiled`` (flash_attention_fwd.cu,
-    ``launch_bf16``): dims innermost first (D, H, T, B), byte strides of
-    dims 1-3, and a box of 64 values of D x 1 head x 128 time steps x 1
-    batch, so D is read as D / 64 boxes."""
+def _tma_geometry(x, rows: int = TMA_TILE) -> dict:
+    """The 4-D tensor map a bf16 kernel encodes for operand ``x``
+    (B, T, H, D) with ``cuTensorMapEncodeTiled``: dims innermost first
+    (D, H, T, B), byte strides of dims 1-3, and a box of 64 values of D x 1
+    head x ``rows`` time steps x 1 batch, so D is read as D / 64 boxes
+    (``encode_operand``, flash_common.cuh). The forward uses 128-row
+    boxes, the backward 64-row ones."""
     B, T, H, D = x.shape
     sb, st, sh = _strides(x)
     esize = x.element_size()
     return {"dims": (D, H, T, B),
             "strides": (sh * esize, st * esize, sb * esize),
-            "box": (TMA_BOX, 1, TMA_TILE, 1),
+            "box": (TMA_BOX, 1, rows, 1),
             "boxes": D // TMA_BOX}
 
 
 def _kernel_readable(x) -> bool:
     """Whether the kernels can read ``x`` in place: D contiguous, the base
-    16-byte aligned and every stepped stride a multiple of 16 bytes (TMA's
-    rule for a tensor map, and the forward's float32 and the backward's
-    cp.async copies of 16 bytes)."""
+    16-byte aligned and every stepped stride a positive multiple of 16
+    bytes (TMA's rule for a tensor map, which the float32 kernels are held
+    to as well; an expanded dO, stride 0, is packed)."""
     return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 16 == 0 and s < 2 ** 40
+            and all(0 < s < 2 ** 40 and s % 16 == 0
                     for s in _tma_geometry(x)["strides"]))
 
 
@@ -261,7 +275,8 @@ def _check_bwd(q, k, v, out, lse, do):
 
 def _row_dot(do, out):
     """D = rowsum(dO * O) in float32, as (B*H, Tq): the JAX package takes it
-    in XLA outside its kernels (pallas_kernels.py:282)."""
+    in XLA outside its kernels (pallas_kernels.py:282). The plain version's
+    and the float32 kernels'; the bf16 dq kernel computes its own."""
     B, Tq, H, _ = do.shape
     acc = torch.promote_types(_acc_dtype(do), _acc_dtype(out))
     d = (do.to(acc) * out.to(acc)).sum(-1)               # (B, Tq, H)
@@ -296,22 +311,38 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
 class _BwdLaunch:
     """One backward call's operands as the two kernels take them: the
     tensors (held here, so their memory outlives the launches), the packed
-    C arguments, and the outputs."""
+    C arguments, the outputs, and for bfloat16 the seven tensor maps,
+    encoded once here for both launches. ``delta`` holds rowsum(dO * O):
+    the bf16 dq kernel writes it and the dk/dv kernel reads it, so
+    ``dq_kernel`` runs first; for float32 it is computed here."""
 
     def __init__(self, q, k, v, out, lse, do, causal, scale):
         B, Tq, H, D = q.shape
         Tk = k.shape[1]
         do = do.to(q.dtype)
-        self.delta = _row_dot(do, out)
         self.lse = lse.contiguous()
         # dO from autograd may be any view; it is packed only when unreadable
-        self.q, self.k, self.v, self.do = _readable(q, k, v, do)
+        self.q, self.k, self.v, self.do, self.out = _readable(q, k, v, do,
+                                                              out)
         self.dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
         self.dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
         self.dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
         from . import _build
         self.lib = _build.load("flash_attention_bwd", _C_FUNCTIONS_BWD)
         self.device = q.device
+        if q.dtype == torch.bfloat16:
+            self.delta = torch.empty((B * H, Tq), dtype=torch.float32,
+                                     device=q.device)
+            self.maps = ctypes.create_string_buffer(_BWD_MAPS_BYTES)
+            ops = (self.q, self.k, self.v, self.do, self.out)
+            rc = self.lib.mmlspark_flash_attention_bwd_encode(
+                self.maps, *(x.data_ptr() for x in ops),
+                self.dk.data_ptr(), self.dv.data_ptr(),
+                *(s for x in ops for s in _strides(x)), B, H, Tq, Tk, D)
+            _raise_on(rc, self.lib, "flash_attention_bwd (tensor maps)")
+        else:
+            self.delta = _row_dot(self.do, self.out)
+            self.maps = None
         self.ins = tuple(x.data_ptr() for x in (self.q, self.k, self.v,
                                                  self.do, self.lse,
                                                  self.delta))
@@ -326,17 +357,42 @@ class _BwdLaunch:
     def dq_kernel(self):
         with torch.cuda.device(self.device):
             rc = self.lib.mmlspark_flash_attention_bwd_dq(
-                *self.ins, self.dq.data_ptr(), *self.shape, self._stream())
+                self.maps, *self.ins, self.dq.data_ptr(), *self.shape,
+                self._stream())
         _raise_on(rc, self.lib, "flash_attention_bwd (dq)")
         flash_attention_bwd.launches_dq += 1
 
     def dkv_kernel(self):
         with torch.cuda.device(self.device):
             rc = self.lib.mmlspark_flash_attention_bwd_dkv(
-                *self.ins, self.dk.data_ptr(), self.dv.data_ptr(),
+                self.maps, *self.ins, self.dk.data_ptr(), self.dv.data_ptr(),
                 *self.shape, self._stream())
         _raise_on(rc, self.lib, "flash_attention_bwd (dk/dv)")
         flash_attention_bwd.launches_dkv += 1
+
+
+def _wgmma_tile_probe(a, b):
+    """The bf16 backward's two new wgmma forms on one tile, for checking on
+    the card: ``a`` and ``b`` contiguous (64, D) bfloat16 CUDA tensors (D 64
+    or 128) -> (s = a b^T, (64, 64), and o = bf16(s) b, (64, D)), both
+    float32: s as S = Q K^T reads Q and K, o as dQ += dS K reads K."""
+    if a.shape != b.shape or a.shape[0] != TMA_BWD_ROWS \
+            or a.shape[1] not in _HEAD_DIMS or a.dtype != torch.bfloat16 \
+            or not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the probe takes two contiguous (64, 64|128) bf16 "
+                         "tensors")
+    from . import _build
+    lib = _build.load("flash_attention_bwd", _C_FUNCTIONS_BWD)
+    D = a.shape[1]
+    s = torch.empty((TMA_BWD_ROWS, TMA_BWD_ROWS), dtype=torch.float32,
+                    device=a.device)
+    o = torch.empty((TMA_BWD_ROWS, D), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        rc = lib.mmlspark_wgmma_tile_probe(
+            a.data_ptr(), b.data_ptr(), s.data_ptr(), o.data_ptr(), D,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, "wgmma tile probe")
+    return s, o
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
@@ -352,6 +408,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
         return flash_attention_bwd_reference(q, k, v, out, lse, do,
                                              causal=causal, scale=scale)
     _check_cuda(q, k, "flash_attention_bwd")
+    if out.dtype != q.dtype:
+        raise ValueError(f"the CUDA kernels take out in q's dtype {q.dtype}, "
+                         f"not {out.dtype}")
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
     call = _BwdLaunch(q, k, v, out, lse, do, causal, scale)
     call.dq_kernel()
