@@ -14,7 +14,11 @@ Phases, each printing one JSON line:
    together), with ptxas' register/spill report for each; the lines of the
    three warp-specialised wgmma kernels (the bf16 forward, dq and dk/dv,
    ``WGMMA_ENTRIES``) are printed apart and must show no spill and no
-   serialised wgmma at either head dim.
+   serialised wgmma at either head dim. For the GBDT histogram library it
+   prints ptxas' lines of ``hist_accumulate`` and, from ``cuobjdump
+   -sass``, the atomic instructions of each of its instantiations (shared
+   ``ATOMS`` and compare-and-swap forms counted apart; "not available"
+   without cuobjdump).
 2. kernel — holds the forward kernel against its plain PyTorch version on
    the card at ragged, cross-attention and slice shapes (and on strided
    views of one qkv projection, as the model passes them), and in bf16 at
@@ -46,8 +50,16 @@ Phases, each printing one JSON line:
    also -1 no-op rounds, a tree that stops at round 0 and R = 127 rounds)
    and at the slices' (1M x 28 rows, 16 nodes, 100 trees of depth 5, 100
    leaf-wise trees of 30 rounds); two launches on the same inputs must give
-   the same bits. Each is timed at the slice shape beside its plain
-   version, its bound and (the histograms) two ``torch.bincount`` calls.
+   the same bits. The histograms must also equal their fixed-point
+   arithmetic in plain PyTorch bit for bit (``*_kernel_arithmetic``: the
+   integer sums are exact), give the same bits on the same rows permuted,
+   and give the float64 plain version's NaN/+inf/-inf on non-finite g;
+   cases with all-zero g, one outlier of 1e3, one row, and the leaf-wise
+   round's 2 nodes with the other rows' id out of range. Each kernel is
+   timed beside its plain version, its bound and (the histograms) two
+   ``torch.bincount`` calls: the predicts at the slice shape, the
+   histograms at every shape their paths launch (``hist_timings``), each
+   with the profile of one call.
 5. slice  — the serving path at full width: a DataFrame of 13 rows x 4096
    token ids -> ``TorchModel.transform`` (causal TransformerEncoder,
    d_model 512, 4 heads, 4 layers, vocab 32000, bfloat16, random weights
@@ -84,7 +96,7 @@ Phases, each printing one JSON line:
    ``LightGBMClassifier(device="cuda").setGrowthPolicy("leafwise")`` (31
    leaves best-first, maxDepth 0, 100 trees, maxBin 255: native LightGBM's
    defaults) -> ``transform`` with predictImpl auto. The node histogram
-   must launch 31 x 100 times per fit (3 ids a round) and the leaf-wise
+   must launch 31 x 100 times per fit (2 nodes a round) and the leaf-wise
    predict kernel not at all, then once per transform; two fits give the
    same bits; the first 10 trees equal those of the segment-histogram fit
    and the training log-loss agrees within 1e-4; the kernel's raw scores
@@ -329,16 +341,59 @@ WGMMA_ENTRIES = (("flash_attention_fwd", "flash_fwd_bf16"),
                  ("flash_attention_bwd", "flash_bwd_dkv_bf16"))
 
 
+def sass_atomics(path: str, entry: str):
+    """Per instantiation of the entry function ``entry`` in the library at
+    ``path`` (named by its template arguments), the count of each atomic
+    instruction in ``cuobjdump -sass``, and how many of them are shared
+    (ATOMS) and compare-and-swap (CAS) forms: whether a 64-bit shared add
+    is one instruction or a loop. "not available" without cuobjdump."""
+    import os
+    import re
+    import shutil
+    import subprocess
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return "not available"
+    r = subprocess.run([exe, "-sass", path], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        return f"not available (cuobjdump exit {r.returncode})"
+    out, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            t = re.search(entry + r"ILi(\d)ELb(\d)E", m.group(1))
+            where = t and ("shared" if t.group(2) == "1" else "global")
+            fn = f"mode{t.group(1)}_{where}" if t else None
+            if fn:
+                out[fn] = {}
+            continue
+        m = fn and re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.?[A-Z0-9._]*)",
+                             line)
+        if m:
+            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+    return {fn: {"instructions": c,
+                 "ATOMS": sum(n for k, n in c.items()
+                              if k.startswith("ATOMS")),
+                 "CAS": sum(n for k, n in c.items() if "CAS" in k)}
+            for fn, c in out.items()}
+
+
 def phase_build(torch, env):
     from mmlspark_tpu_torch.ops import _build
     t0 = time.perf_counter()
     report = _build.build_all()
     lines = {entry: ptxas_lines(report[lib]["ptxas"], entry)
              for lib, entry in WGMMA_ENTRIES}
+    atomics = sass_atomics(report["gbdt_histogram"]["path"],
+                           "hist_accumulate")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"path": v["path"], "ptxas": v["ptxas"]}
                       for k, v in report.items()},
           **{f"{entry}_ptxas": ln for entry, ln in lines.items()},
+          "gbdt_histogram_sass_atomics": atomics,
+          "hist_accumulate_ptxas": ptxas_lines(
+              report["gbdt_histogram"]["ptxas"], "hist_accumulate"),
           "gpu": env.gpu_name_and_power_limit(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     for entry, ln in lines.items():
@@ -555,6 +610,156 @@ def hist_bound(n_rows, n_feat, in_bytes_per_cell, n_out) -> dict:
                  + 2 * 4 * n_out, "float32")
 
 
+def node_hist_bound(n_rows, n_feat, n_live, n_out) -> dict:
+    """Least time for one node histogram whose ``n_live`` rows lie in
+    [0, n_nodes): every row's node id and g/h read once, the live rows'
+    bins read once, two float32 adds per live (row, feature), the two
+    outputs written once."""
+    return bound(2.0 * n_live * n_feat,
+                 n_feat * n_live + 12 * n_rows + 2 * 4 * n_out, "float32")
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit, NaN for NaN (whatever the NaN's payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def leaf_pair_case(torch, gen, F, N, n_bins, live=1.0 / 3):
+    """Inputs of the leaf-wise round's node histogram: ids 0 and 1 (the two
+    fresh leaves) on a ``live`` share of the rows, id 2 (every other row,
+    out of range at 2 nodes) on the rest."""
+    bins_t = torch.randint(0, n_bins, (F, N), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+    u = torch.rand(N, generator=gen, device="cuda")
+    node = torch.where(u < live, (u < live / 2).to(torch.int32) ^ 1,
+                       torch.full_like(u, 2, dtype=torch.int32)).to(
+                           torch.int32)
+    return (bins_t, node, torch.randn(N, generator=gen, device="cuda"),
+            torch.rand(N, generator=gen, device="cuda"))
+
+
+def special_values(torch, gen, kind, F, N, n_bins):
+    """Node-histogram inputs with ``kind`` g: "non_finite" (NaN on every
+    997th row, +inf on rows 3 and 5, -inf on row 4, rows 3 and 4 in one
+    key of every feature), "zero" (all 0), "outlier" (one 1e3 among
+    log-loss-sized values), "one_row" (N = 1)."""
+    if kind == "one_row":
+        N = 1
+    bins_t = torch.randint(0, n_bins, (F, N), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+    node = torch.randint(0, 4, (N,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    g = torch.randn(N, generator=gen, device="cuda") * 0.5
+    h = torch.rand(N, generator=gen, device="cuda") * 0.25
+    if kind == "non_finite":
+        bins_t[:, 4] = bins_t[:, 3]
+        node[4] = node[3]
+        g[::997] = float("nan")
+        g[3] = g[5] = float("inf")
+        g[4] = float("-inf")
+    elif kind == "zero":
+        g.zero_()
+    elif kind == "outlier":
+        g[N // 2] = 1e3
+    return bins_t, node, g, h
+
+
+def host_us_per_call(torch, fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls queued
+    back to back (the host clock, synchronised before and after): the
+    wrapper's host work where the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def hist_timings(torch, gen) -> dict:
+    """Both histogram kernels timed at every shape their paths launch,
+    beside their plain versions, two ``torch.bincount`` calls and their
+    bounds: row 4 at 1-16 nodes over 28 x 1M (level-wise), the leaf-wise
+    round's 2 live leaves over 28 x 1M and the EFB fit's over 715 x 200k
+    (one third of the rows in the two leaves; each also at 3 ids, the
+    same inputs as a 3-slot caller asks, as before the leaf-wise path
+    asked for the two leaves alone); row 7 at 16 x 255 ids over 28 x 1M.
+    The plain versions are timed over 5 calls."""
+    from mmlspark_tpu_torch.ops import gbdt_kernels as gk
+    N, F, NB = GBDT_ROWS, GBDT_FEATURES, GBDT_MAX_BIN
+
+    def entry(path, shape, fn, plain_fn, ids, gx, hx, size, bnd):
+        return {"path": path, "shape": shape, "ms": cuda_ms(torch, fn),
+                "profile_of_one_call": device_breakdown(torch, fn, top=5),
+                "plain_ms": cuda_ms(torch, plain_fn, iters=5, warmup=1),
+                "library_ms": cuda_ms(torch, lambda: (
+                    torch.bincount(ids, weights=gx, minlength=size),
+                    torch.bincount(ids, weights=hx, minlength=size))),
+                "library": "torch.bincount(ids, weights=g|h), twice",
+                **bnd}
+
+    def node_entry(path, bins_t, node, g, h, nn):
+        F_, N_ = bins_t.shape
+        live = (node >= 0) & (node < nn)
+        size = nn * F_ * NB
+        # the rows outside the nodes, where there are any, into a discard
+        # histogram past the output (size + (f, bin)): one slot for all of
+        # them would serialise the library call's atomics on one address
+        discard = 0 if bool(live.all()) else F_ * NB
+        feat_bin = torch.arange(F_, device="cuda")[:, None] * NB \
+            + bins_t.long()
+        ids = torch.where(live[None, :], node.long()[None, :] * F_ * NB
+                          + feat_bin, size + feat_bin).reshape(-1)
+        gx, hx = g.expand(F_, N_).reshape(-1), h.expand(F_, N_).reshape(-1)
+        return entry(
+            path, {"F": F_, "N": N_, "n_nodes": nn, "n_bins": NB},
+            lambda: gk.mxu_node_histogram(bins_t, node, g, h, n_nodes=nn,
+                                          n_bins=NB),
+            lambda: gk.node_histogram_reference(bins_t, node, g, h,
+                                                n_nodes=nn, n_bins=NB),
+            ids, gx, hx, size + discard,
+            node_hist_bound(N_, F_, int(live.sum()), size))
+
+    shapes = []
+    for nn in (1, 2, 4, 8, 16):
+        bins_t, node, g, h = node_hist_case(torch, gen, F, N, nn, NB, False)
+        shapes.append(node_entry("level-wise", bins_t, node, g, h, nn))
+    for path, F_, N_ in (("leaf-wise", F, N),
+                         ("EFB", EFB_FIT_FEATURES, EFB_ROWS)):
+        args = leaf_pair_case(torch, gen, F_, N_, NB)
+        for nn in (2, 3):
+            shapes.append(node_entry(path, *args, nn))
+        del args
+    # the wrappers' host time a call (host clock, not a device metric):
+    # 200 calls at 28 x 4096, where the card finishes each call before
+    # the host has queued the next
+    small = node_hist_case(torch, gen, F, 4096, 16, NB, False)
+    small_ids = fused_case(torch, gen, F, 4096, 16 * NB, False)
+    host_us = {
+        "node_hist": host_us_per_call(torch, lambda: gk.mxu_node_histogram(
+            *small, n_nodes=16, n_bins=NB)),
+        "fused": host_us_per_call(torch, lambda: gk.histogram_fused(
+            *small_ids, n_bins=16 * NB)),
+        "shape": {"F": F, "N": 4096, "n_nodes": 16, "n_bins": NB}}
+    bins, g, h = fused_case(torch, gen, F, N, 16 * NB, False)
+    ids = (torch.arange(F, device="cuda") * (16 * NB)
+           + bins.long()).reshape(-1)
+    gx, hx = g[:, None].expand(N, F).reshape(-1), h[:, None].expand(
+        N, F).reshape(-1)
+    fused = entry(
+        "hist_impl=pallas", {"N": N, "F": F, "n_bins": 16 * NB},
+        lambda: gk.histogram_fused(bins, g, h, n_bins=16 * NB),
+        lambda: gk.histogram_fused_reference(bins, g, h, n_bins=16 * NB),
+        ids, gx, hx, F * 16 * NB, hist_bound(N, F, 4, F * 16 * NB))
+    return {"node_hist_shapes": shapes, "fused": fused,
+            "wrapper_host_us_per_call": host_us}
+
+
 def node_hist_case(torch, gen, F, N, n_nodes, n_bins, oor):
     """Inputs of mxu_node_histogram on the card: uint8 bins_t (F, N) over all
     256 values (bins >= n_bins add nothing), node ids in [0, n_nodes), or
@@ -637,22 +842,59 @@ def phase_kernel_gbdt(torch):
              "predict_lw": 0.0}
     results = []
 
-    def hold(name, case, got, ref, tol_rel):
+    def hold(name, case, got, ref, tol_rel, arith):
+        """Two launches bit-identical, equal bit for bit to the kernel's
+        fixed-point arithmetic (integer sums are exact), and within
+        TOL_HIST_ABS + tol_rel * |plain| of the float64 plain version;
+        NaN and the infinities where the plain version has them."""
         (g1, h1), (g2, h2), (rg, rh) = got[0], got[1], ref
-        same = torch.equal(g1, g2) and torch.equal(h1, h2)
-        err = max((g1 - rg).abs().max().item(), (h1 - rh).abs().max().item())
-        excess = max(((g1 - rg).abs() - tol_rel * rg.abs()).max().item(),
-                     ((h1 - rh).abs() - tol_rel * rh.abs()).max().item())
-        case.update(kernel=name, max_abs_err=err, bit_identical_repeat=same)
+        same = same_bits(torch, g1, g2) and same_bits(torch, h1, h2)
+        exact = same_bits(torch, g1, arith[0]) and same_bits(torch, h1,
+                                                            arith[1])
+        err = excess = 0.0
+        ieee = True
+        for k, r in ((g1, rg), (h1, rh)):
+            fin = torch.isfinite(r)
+            ieee = ieee and torch.equal(fin, torch.isfinite(k)) and \
+                torch.equal(torch.isnan(k), torch.isnan(r)) and \
+                torch.equal(k[torch.isinf(r)], r[torch.isinf(r)])
+            d = (k[fin] - r[fin]).abs()
+            if d.numel():
+                err = max(err, d.max().item())
+                excess = max(excess,
+                             (d - tol_rel * r[fin].abs()).max().item())
+        case.update(kernel=name, max_abs_err=err, bit_identical_repeat=same,
+                    equal_to_arithmetic=exact, ieee_non_finite=ieee)
         results.append(case)
         check(same, f"{name}: two launches on the same inputs differ {case}")
+        check(exact, f"{name} differs from its fixed-point arithmetic {case}")
+        check(ieee, f"{name}: NaN/inf where the plain version has none, or "
+                    f"the reverse {case}")
         check(excess <= TOL_HIST_ABS,
               f"{name} disagrees with its plain version: {case}")
         worst[name] = max(worst[name], err)
 
+    def node_case(case, args, nn, nb):
+        got = [gk.mxu_node_histogram(*args, n_nodes=nn, n_bins=nb)
+               for _ in range(2)]
+        ref = gk.node_histogram_reference(*args, n_nodes=nn, n_bins=nb)
+        arith = gk.node_histogram_kernel_arithmetic(*args, nn, nb)
+        torch.cuda.synchronize()
+        hold("node_hist", case, got, ref, TOL_HIST_REL, arith)
+        return got[0]
+
+    def fused_hold(case, args, nb):
+        got = [gk.histogram_fused(*args, n_bins=nb) for _ in range(2)]
+        ref = gk.histogram_fused_reference(*args, n_bins=nb)
+        arith = gk.histogram_fused_kernel_arithmetic(*args, nb)
+        torch.cuda.synchronize()
+        hold("fused", case, got, ref, TOL_HIST_REL, arith)
+        return got[0]
+
     # F x N x n_nodes x n_bins: ragged N, F off every tile, 1..64 nodes,
     # out-of-range node ids and bins, 16/255/256 bins; last the paths'
-    # shapes: level-wise (16 nodes), leaf-wise (3 ids a round) and EFB
+    # shapes: level-wise (16 nodes), and leaf-wise and EFB at the 3 ids
+    # that the combined-id paths ask for
     for F_, N_, nn, nb, oor in ((5, 333, 3, 16, True),
                                 (13, 77777, 1, 256, True),
                                 (28, 100003, 2, 255, True),
@@ -663,24 +905,54 @@ def phase_kernel_gbdt(torch):
                                 (F, N, 3, NB, False),
                                 (EFB_FIT_FEATURES, EFB_ROWS, 3, NB, False)):
         args = node_hist_case(torch, gen, F_, N_, nn, nb, oor)
-        got = [gk.mxu_node_histogram(*args, n_nodes=nn, n_bins=nb)
-               for _ in range(2)]
-        ref = gk.node_histogram_reference(*args, n_nodes=nn, n_bins=nb)
-        torch.cuda.synchronize()
-        hold("node_hist", {"F": F_, "N": N_, "n_nodes": nn, "n_bins": nb,
-                           "out_of_range": oor}, got, ref, TOL_HIST_REL)
+        node_case({"F": F_, "N": N_, "n_nodes": nn, "n_bins": nb,
+                   "out_of_range": oor}, args, nn, nb)
+    # the leaf-wise round as cand_pair now asks: 2 nodes, id 2 (out of
+    # range) on most rows, at the leaf-wise and EFB paths' widths
+    for F_, N_ in ((F, N), (EFB_FIT_FEATURES, EFB_ROWS)):
+        node_case({"F": F_, "N": N_, "n_nodes": 2, "n_bins": NB,
+                   "third_id_rows": 0.8},
+                  leaf_pair_case(torch, gen, F_, N_, NB, live=0.2), 2, NB)
+    # NaN/+inf/-inf (and both infinities in one key), all-zero g, one
+    # outlier of 1e3, one row
+    for kind in ("non_finite", "zero", "outlier", "one_row"):
+        args = special_values(torch, gen, kind, 7, 50001, NB)
+        node_case({"F": 7, "N": args[1].shape[0], "n_nodes": 4,
+                   "n_bins": NB, "values": kind}, args, 4, NB)
+        ids = (args[1].long()[:, None] * NB + args[0].T.long()).to(
+            torch.int32).contiguous()
+        fused_hold({"F": 7, "N": ids.shape[0], "n_bins": 4 * NB,
+                    "values": kind}, (ids, args[2], args[3]), 4 * NB)
+    # the same rows in another order give the same bits
+    args = node_hist_case(torch, gen, 28, 100003, 16, NB, True)
+    perm = torch.randperm(100003, generator=gen, device="cuda")
+    pargs = (args[0][:, perm].contiguous(), args[1][perm], args[2][perm],
+             args[3][perm])
+    a = node_case({"F": 28, "N": 100003, "n_nodes": 16, "n_bins": NB,
+                   "rows": "in order"}, args, 16, NB)
+    b = node_case({"F": 28, "N": 100003, "n_nodes": 16, "n_bins": NB,
+                   "rows": "permuted"}, pargs, 16, NB)
+    check(same_bits(torch, a[0], b[0]) and same_bits(torch, a[1], b[1]),
+          "node_hist: a row permutation changed the bits")
+    results[-1]["same_bits_as_in_order"] = True
+    fargs = fused_case(torch, gen, 13, 77777, 16 * NB, True)
+    perm = torch.randperm(77777, generator=gen, device="cuda")
+    a = fused_hold({"F": 13, "N": 77777, "n_bins": 16 * NB,
+                    "rows": "in order"}, fargs, 16 * NB)
+    b = fused_hold({"F": 13, "N": 77777, "n_bins": 16 * NB,
+                    "rows": "permuted"},
+                   tuple(x[perm].contiguous() for x in fargs), 16 * NB)
+    check(same_bits(torch, a[0], b[0]) and same_bits(torch, a[1], b[1]),
+          "fused: a row permutation changed the bits")
+    results[-1]["same_bits_as_in_order"] = True
     # the fused kernel's ids reach n_nodes * max_bin in the engine
     for F_, N_, nb, oor in ((5, 333, 16, True), (13, 77777, 255, True),
                             (28, 100003, 256, True),
                             (7, 50001, 16 * NB, True),
                             (3, 12345, 64 * NB, False),
                             (F, N, 16 * NB, False)):
-        args = fused_case(torch, gen, F_, N_, nb, oor)
-        got = [gk.histogram_fused(*args, n_bins=nb) for _ in range(2)]
-        ref = gk.histogram_fused_reference(*args, n_bins=nb)
-        torch.cuda.synchronize()
-        hold("fused", {"F": F_, "N": N_, "n_bins": nb, "out_of_range": oor},
-             got, ref, TOL_HIST_REL)
+        fused_hold({"F": F_, "N": N_, "n_bins": nb, "out_of_range": oor},
+                   fused_case(torch, gen, F_, N_, nb, oor), nb)
     # T x K x depth x d x n: ragged n and d, K = 3, int8-scaled leaves,
     # depth 7 over 256 features, tables too large for shared memory (read
     # from global memory), the 255 sentinel; last the slice shape
@@ -732,43 +1004,12 @@ def phase_kernel_gbdt(torch):
               f"{case}")
         worst["predict_lw"] = max(worst["predict_lw"], err)
 
-    # timing at the slice shapes (cuda_ms: back-to-back calls, after warm-up)
-    timing = {}
-    bins_t, node, g, h = node_hist_case(torch, gen, F, N, 16, NB, False)
-    ids = ((node.long()[None, :] * F
-            + torch.arange(F, device="cuda")[:, None]) * NB
-           + bins_t.long()).reshape(-1)
-    gx, hx = g.expand(F, N).reshape(-1), h.expand(F, N).reshape(-1)
-    size = 16 * F * NB
-    timing["node_hist"] = {
-        "shape": {"F": F, "N": N, "n_nodes": 16, "n_bins": NB},
-        "ms": cuda_ms(torch, lambda: gk.mxu_node_histogram(
-            bins_t, node, g, h, n_nodes=16, n_bins=NB)),
-        "plain_ms": cuda_ms(torch, lambda: gk.node_histogram_reference(
-            bins_t, node, g, h, n_nodes=16, n_bins=NB)),
-        "library_ms": cuda_ms(torch, lambda: (
-            torch.bincount(ids, weights=gx, minlength=size),
-            torch.bincount(ids, weights=hx, minlength=size))),
-        "library": "torch.bincount(ids, weights=g|h), twice",
-        **hist_bound(N, F, 1 + 4.0 / F, size)}
-    del ids, gx, hx
-    bins, g, h = fused_case(torch, gen, F, N, 16 * NB, False)
-    ids = (torch.arange(F, device="cuda") * (16 * NB)
-           + bins.long()).reshape(-1)
-    gx, hx = g[:, None].expand(N, F).reshape(-1), h[:, None].expand(
-        N, F).reshape(-1)
-    timing["fused"] = {
-        "shape": {"N": N, "F": F, "n_bins": 16 * NB},
-        "ms": cuda_ms(torch, lambda: gk.histogram_fused(
-            bins, g, h, n_bins=16 * NB)),
-        "plain_ms": cuda_ms(torch, lambda: gk.histogram_fused_reference(
-            bins, g, h, n_bins=16 * NB)),
-        "library_ms": cuda_ms(torch, lambda: (
-            torch.bincount(ids, weights=gx, minlength=F * 16 * NB),
-            torch.bincount(ids, weights=hx, minlength=F * 16 * NB))),
-        "library": "torch.bincount(ids, weights=g|h), twice",
-        **hist_bound(N, F, 4, F * 16 * NB)}
-    del bins, ids, gx, hx
+    # timing at the paths' shapes (cuda_ms: back-to-back calls, after
+    # warm-up); the kernels line takes row 4 at 16 nodes
+    timing = hist_timings(torch, gen)
+    timing["node_hist"] = next(
+        e for e in timing["node_hist_shapes"]
+        if e["path"] == "level-wise" and e["shape"]["n_nodes"] == 16)
     T, D = GBDT_TREES, GBDT_DEPTH
     bins_t, feat, thr, leaf = predict_case(torch, gen, T, 1, D, F, N, False)
     table_bytes = T * (2 * (2 ** D - 1) + 4 * 2 ** D)
@@ -1162,7 +1403,7 @@ def phase_gbdt(torch, env, dev="cuda"):
 def phase_gbdt_leafwise(torch, env, dev="cuda"):
     """The leaf-wise GBDT slice at full size: bench_gbdt.py's data ->
     LightGBMClassifier(device=dev).setGrowthPolicy("leafwise").fit (31
-    leaves best-first, the node-histogram kernel with 3 ids a round) ->
+    leaves best-first, the node-histogram kernel with 2 nodes a round) ->
     transform with predictImpl auto (the leaf-wise predict kernel). ``dev``
     is for rehearsing the phase on the CPU."""
     from mmlspark_tpu_torch import DataFrame, LightGBMClassifier

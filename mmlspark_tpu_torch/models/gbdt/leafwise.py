@@ -10,7 +10,9 @@ fixed, not the shape of the tree:
   * each round argmaxes a per-leaf candidate cache (gain, feature,
     threshold or category set), splits that leaf, and rebuilds candidates
     for ONLY the two fresh leaves with one histogram pass over all rows
-    (rows outside the split leaf land in a discard slot);
+    (rows outside the two leaves add nothing: the node-histogram kernel
+    drops their out-of-range id, the combined-id paths send them to a
+    discard slot);
   * a leaf whose best gain cannot clear ``min_split_gain`` is retired (its
     cache entry pinned to -inf), so an exhausted tree finishes in no-op
     rounds.
@@ -198,12 +200,19 @@ def grow_tree_leafwise(bins, bins_t, g, h, *, num_leaves: int, n_bins: int,
     dev = bins.device
     L = num_leaves
 
+    # the node-histogram kernel drops ids outside [0, n_nodes), so it
+    # builds the two leaves alone; the combined-id paths (node * n_bins +
+    # bin) need the discard slot's ids in range, or they would spill into
+    # the next feature
+    n_ids = 2 if hist_impl == "mxu" else 3
+
     def cand_pair(node, a, b):
-        """Candidates of leaves a and b from one histogram pass (3 ids: the
-        two leaves and a discard slot for every other row)."""
+        """Candidates of leaves a and b from one histogram pass (ids 0 and
+        1; id 2, every other row, adds nothing to the two leaves)."""
         ids = torch.where(node == a, 0, torch.where(node == b, 1, 2)).to(
             torch.int32)
-        hg, hh = _histograms(bins, bins_t, g, h, ids, 3, n_bins, hist_impl)
+        hg, hh = _histograms(bins, bins_t, g, h, ids, n_ids, n_bins,
+                             hist_impl)
         return _candidates_2(hg[:2], hh[:2], feat_mask, cat_feats, n_bins,
                              lambda_l2, lambda_l1, min_child_weight,
                              cat_smooth, has_cats=has_cats)

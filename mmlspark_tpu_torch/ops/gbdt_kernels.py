@@ -17,16 +17,26 @@ a plain int attribute, ``launches``, and nowhere else.
   same for a leaf-wise ensemble, replaying each tree's split sequence;
   ``csrc/gbdt_predict.cu``.
 
-Every grad/hess sum here — the kernels, their plain versions, the plain
-histograms and the leaf sums — accumulates in float64 and rounds to float32
-once: each result is the float32 sum correctly rounded (to within float64's
-rounding), whatever order it is taken in. The kernels take theirs in an
-order fixed by the shapes (no atomics), so repeated calls give the same
-bits; the plain versions' CUDA scatter-adds are atomic, in no fixed order,
-and still agree with the kernels in all but a last-bit double rounding of
-one sum in millions. So a fit through a kernel and through a plain path
-grow the same trees, where float32 sums in two orders would break a
-near-tie in the split search differently.
+The histogram kernels sum in integer fixed point: each g and h becomes a
+64-bit integer word and a 32-bit word of 14 more fraction bits, at one
+power-of-two scale per call and quantity, chosen from max|v| and the row
+count so that no sum can overflow; the integers are added in any order
+(atomics) and each sum is converted to float32 once. Integer addition is
+associative, so repeated calls, and calls on the same rows in another
+order, give the same bits; each output is within count * max|v| * N *
+2^-76 of the exact sum before its rounding to float32
+(:func:`node_histogram_kernel_arithmetic` and
+:func:`histogram_fused_kernel_arithmetic` repeat the arithmetic bit for
+bit, for the tests and the chip smoke run). The plain
+versions, the plain histograms and the leaf sums accumulate in float64 and
+round to float32 once. That bound is absolute, not relative: where a
+key's sum S has |S| >= count * max|v| * N * 2^-50 (at N = 1M, a mean value
+of at least 8.9e-10 * max|v|), it stays under half a float32 ulp of S, so
+kernel and plain version both give S within one ulp of its correct
+rounding and differ at most in that last bit, rarely; a key whose values
+cancel below that is held only to the bound. So a fit through a kernel
+and through a plain path grow the same trees, where float32 sums in two
+orders would break a near-tie in the split search differently.
 
 Also here, as plain PyTorch (the JAX package's plain-XLA functions):
 :func:`segment_histogram`, :func:`compare_reduce_histogram` and
@@ -36,6 +46,8 @@ Also here, as plain PyTorch (the JAX package's plain-XLA functions):
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -45,21 +57,33 @@ import torch
 PREDICT_QUANT_MAX_NODES = 127
 PREDICT_QUANT_MAX_LEAVES = 128
 
-#: threads and keys per histogram block: each warp's (g, h) sub-histogram
-#: of _KEY_RANGE doubles sits in shared memory, 8 warps x 2 x 512 x 8 bytes
-#: = 64 KB, three blocks per SM
-_THREADS = 256
-_KEY_RANGE = 512
-#: row splits aim at this many blocks per SM
-_BLOCKS_PER_SM = 8
-_MIN_ROWS_PER_SPLIT = 8192
+#: the histogram kernels' fixed point (csrc/gbdt_histogram.cu): the scale
+#: is 2^s with s = FIXED_HEADROOM - e, (m, e) = frexp(max|v| * N), so every
+#: |v| * 2^s < 2^62 / N and no sum of the int64 words overflows; the low
+#: word keeps FIXED_LO_BITS bits of each value's fraction
+FIXED_HEADROOM = 62
+FIXED_LO_BITS = 14
+#: threads per histogram block; shared bytes per (feature, key): the int64
+#: and int32 words of g and h
+_THREADS = 512
+_KEY_BYTES = 24
+#: a block's shared sub-histograms aim at this size (two blocks of 512
+#: threads per SM) and may not pass the per-block maximum; an SM's shared
+#: memory (sm_90)
+_SMEM_TARGET = 100 * 1024
+_SMEM_MAX = 232448
+_SM_SMEM = 233472
+#: rows per block: its int32 low words (|lo| <= 2^13) cannot overflow
+_MAX_SPLIT_ROWS = 1 << 17
+#: the share of its waves' block slots a plan's grid fills at least
+_WAVE_FILL = 0.9
 
 _C_HIST = {
     "mmlspark_gbdt_histogram": (
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
-        + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p]),
+        + [ctypes.c_int] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]),
     "mmlspark_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _C_PREDICT = {
@@ -146,40 +170,132 @@ def node_sums(node, g, h, n_ids: int, impl: str = "auto"):
 
 # ------------------------------------------------------ histogram kernels
 
-def _splits(n_rows: int, blocks_xy: int, device) -> tuple:
-    """(row splits, rows per split): enough blocks for _BLOCKS_PER_SM per
-    SM, each split at least _MIN_ROWS_PER_SPLIT rows. A function of the
-    shapes and the card alone, so the summation order is fixed."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-sms * _BLOCKS_PER_SM // blocks_xy)
-    cap = max(1, -(-n_rows // _MIN_ROWS_PER_SPLIT))
-    n_splits = max(1, min(want, cap, 65535))
-    return n_splits, max(1, -(-n_rows // n_splits))
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n_rows: int, n_feat: int, n_keys: int, sms: int) -> tuple:
+    """(features per block, row splits, rows per split, shared memory?)
+    for a histogram launch. A block keeps the words of its features' keys
+    in shared memory when one feature's fit; its features share each row's
+    loads and quantization. A split holds at most _MAX_SPLIT_ROWS rows,
+    where the int32 low words cannot overflow, and the grid takes the
+    fewest whole waves of resident blocks that it fills to _WAVE_FILL,
+    with as many row splits as those waves hold. Where one feature's keys
+    do not fit, blocks add into their part in global memory, one feature
+    each, over the fewest splits: every split adds a part of all the keys.
+    Only the speed depends on the plan, never the bits."""
+    per_feat = n_keys * _KEY_BYTES
+    smem = per_feat <= _SMEM_MAX
+    groups = -(-n_feat // max(1, _SMEM_TARGET // per_feat)) if smem \
+        else n_feat
+    fpb = -(-n_feat // groups)
+    n_splits = max(1, -(-n_rows // _MAX_SPLIT_ROWS))
+    if smem:
+        resident = max(1, min(_SM_SMEM // (fpb * per_feat + 1024),
+                              2048 // _THREADS))
+        slots = sms * resident
+        waves = -(-groups * n_splits // slots)
+        while groups * (waves * slots // groups) < _WAVE_FILL * waves * slots:
+            waves += 1
+        n_splits = max(n_splits, waves * slots // groups)
+    n_splits = min(n_splits, 65535, n_rows)
+    return fpb, n_splits, -(-n_rows // n_splits), smem
 
 
 def _launch_histogram(mode, bins, node, g, h, n_rows, ld, n_feat, nb,
                       n_nodes, n_keys, out_shape, what):
     from . import _build
     dev = bins.device
-    key_range = min(n_keys, _KEY_RANGE)
-    groups = -(-n_keys // key_range)
-    if groups > 65535:
-        raise ValueError(f"{what}: {n_keys} keys exceed the kernel's grid")
-    n_splits, rows_per = _splits(n_rows, n_feat * groups, dev)
-    part = torch.empty((n_splits, n_feat, 2, n_keys), dtype=torch.float64,
-                       device=dev)
+    fpb, n_splits, rows_per, smem = _plan(
+        n_rows, n_feat, n_keys,
+        _sm_count(dev.index if dev.index is not None
+                  else torch.cuda.current_device()))
+    # one allocation, which the launch zeroes where it must: the max words
+    # and the (F, 2, n_keys) int32 non-finite bits, then the parts'
+    # (n_splits, F, 2, n_keys) int64 high and int32 low words
+    words = n_splits * n_feat * 2 * n_keys
+    scratch = torch.empty(1 + n_feat * n_keys + words + -(-words // 2),
+                          dtype=torch.int64, device=dev)
+    # two allocations, not two views of one: the callers' reductions over
+    # the histograms sum in an order that depends on their alignment
     hg = torch.empty(out_shape, dtype=torch.float32, device=dev)
     hh = torch.empty(out_shape, dtype=torch.float32, device=dev)
     lib = _build.load("gbdt_histogram", _C_HIST)
     with torch.cuda.device(dev):
         rc = lib.mmlspark_gbdt_histogram(
             mode, bins.data_ptr(), node.data_ptr() if node is not None else 0,
-            g.data_ptr(), h.data_ptr(), part.data_ptr(), hg.data_ptr(),
-            hh.data_ptr(), n_rows, ld, n_feat, nb, n_nodes, n_keys,
-            key_range, n_splits, rows_per, _THREADS,
+            g.data_ptr(), h.data_ptr(), scratch.data_ptr(), hg.data_ptr(),
+            hh.data_ptr(), n_rows, ld, n_feat, nb, n_nodes, n_keys, fpb,
+            n_splits, rows_per, int(smem), _THREADS,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, what)
     return hg, hh
+
+
+def _fixed_scale(v, n_rows: int) -> int:
+    """The kernels' scale exponent s for one quantity: 62 - e, (m, e) =
+    frexp(max|v| * N) over the finite values (a max of 0 gives s = 62)."""
+    fin = v[torch.isfinite(v)]
+    m = float(fin.abs().max()) if fin.numel() else 0.0
+    return FIXED_HEADROOM - math.frexp(m * float(n_rows))[1]
+
+
+def _fixed_point_sum(v, ids, ok, size: int, row_axis: int):
+    """One quantity's sums in the kernels' arithmetic. ``ids``/``ok`` are
+    (F, N) with ``row_axis`` 1 or (N, F) with ``row_axis`` 0, v (N,) is
+    broadcast over them, and the sums go into ``size`` slots; non-finite
+    values add nothing to the integers and decide their slot's IEEE
+    result."""
+    s = _fixed_scale(v, v.shape[0])
+    fin = torch.isfinite(v)
+    t = torch.where(fin, v.double(), 0.0) * 2.0 ** s
+    hi = torch.round(t)
+    lo = torch.round((t - hi) * 2.0 ** FIXED_LO_BITS).long()
+    flat = torch.where(ok, ids, size).reshape(-1)
+
+    def total(x):
+        x = (x[None, :] if row_axis == 1 else x[:, None]).expand(ids.shape)
+        return torch.zeros(size + 1, dtype=torch.int64,
+                           device=v.device).index_add_(
+                               0, flat, x.reshape(-1))[:size]
+    H, L = total(hi.long()), total(lo)
+    out = ((H.double() + L.double() * 2.0 ** -FIXED_LO_BITS)
+           * 2.0 ** -s).float()
+    nan, pos, neg = (total(m.long()) > 0 for m in (
+        torch.isnan(v), v == math.inf, v == -math.inf))
+    out = torch.where(pos, math.inf, torch.where(neg, -math.inf, out))
+    return torch.where(nan | (pos & neg), math.nan, out)
+
+
+def node_histogram_kernel_arithmetic(bins_t, node, g, h, n_nodes: int,
+                                     n_bins: int = 256):
+    """The node-histogram kernel's arithmetic in plain PyTorch: the same
+    fixed-point words, exact integer sums and one conversion, so it equals
+    the kernel bit for bit. For tests and the chip smoke run; the fit path
+    uses :func:`mxu_node_histogram`."""
+    F, N = bins_t.shape
+    b = bins_t.long()
+    nd = node.long()[None, :]
+    ok = (nd >= 0) & (nd < n_nodes) & (b < n_bins)
+    ids = (nd * F + torch.arange(F, device=bins_t.device)[:, None]) \
+        * n_bins + b
+    size = n_nodes * F * n_bins
+    return tuple(_fixed_point_sum(v, ids, ok, size, 1).reshape(
+        n_nodes, F, n_bins) for v in (g, h))
+
+
+def histogram_fused_kernel_arithmetic(bins, grad, hess, n_bins: int = 256):
+    """The fused-histogram kernel's arithmetic in plain PyTorch, bit for
+    bit (see :func:`node_histogram_kernel_arithmetic`)."""
+    N, F = bins.shape
+    b = bins.long()
+    ok = (b >= 0) & (b < n_bins)
+    ids = torch.arange(F, device=bins.device) * n_bins + b
+    return tuple(_fixed_point_sum(v, ids, ok, F * n_bins, 0).reshape(
+        F, n_bins) for v in (grad, hess))
 
 
 def node_histogram_reference(bins_t, node, g, h, n_nodes: int,

@@ -7,13 +7,20 @@ mode on the CPU, as the JAX package's own tests run them.
 
 Tolerances: the histograms at rtol 1e-5 / atol 1e-4 against the Pallas node
 histogram and atol 1e-4 against the fused one (float32 sums in another
-order; tests/test_pallas_kernels.py:191, :45); the port accumulates every
-sum in float64 and rounds once, the JAX package sums in float32. The
+order; tests/test_pallas_kernels.py:191, :45); the port's plain versions
+accumulate in float64 and round once, the JAX package sums in float32. The
+histogram kernels sum in integer fixed point: their arithmetic, repeated in
+plain PyTorch (``*_kernel_arithmetic``), is held against the float64 plain
+versions at the chip smoke run's gate (|d| <= 1e-4 + 1e-5 |plain|) and at
+one float32 ulp, and against the Pallas kernels at the tolerances above;
+under a row permutation it must give the same bits. The
 quantized predicts are held at atol 1e-6 against numpy walks copied from
 tests/test_pallas_kernels.py:295-327 (a heap descent, a split-sequence
 replay); the JAX kernels themselves raise on this jax, which lost
 ``pl.load``.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -346,6 +353,9 @@ def test_cuda_kernels_match_plain_and_repeat_bit_for_bit():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for x, y in zip(a, r):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-4)
+    # the integer sums are exact: the kernel is its arithmetic, bit for bit
+    e = gk.node_histogram_kernel_arithmetic(bt, nd, gg, hh, 16, 255)
+    assert all(_same_bits(x, y) for x, y in zip(a, e))
     comb = (np.clip(node, 0, 15)[:, None] * 255 + bins).astype(np.int32)
     cb = torch.from_numpy(comb).cuda()
     a = gk.histogram_fused(cb, gg, hh, n_bins=16 * 255)
@@ -354,6 +364,8 @@ def test_cuda_kernels_match_plain_and_repeat_bit_for_bit():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for x, y in zip(a, r):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-4)
+    e = gk.histogram_fused_kernel_arithmetic(cb, gg, hh, 16 * 255)
+    assert all(_same_bits(x, y) for x, y in zip(a, e))
     rng = np.random.default_rng(10)
     feat = torch.from_numpy(rng.integers(0, 7, (9, 2, 31)).astype(
         np.uint8)).cuda()
@@ -378,3 +390,256 @@ def test_cuda_kernels_match_plain_and_repeat_bit_for_bit():
         with pytest.raises(ValueError, match="takes int32"):
             gk.gbdt_predict_quant_leafwise(bt, *bad)
     assert gk.gbdt_predict_quant_leafwise.launches == before + 2
+
+
+# ------------------------------------------- the kernels' fixed-point sums
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN for NaN (whatever the NaN's payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def _grads(rng, N, objective):
+    """g/h over the ranges the objectives give: binary log-loss (|g| < 1,
+    h <= 0.25), l2 regression on a wide target (h = 1), and log-loss
+    gradients with one outlier of 1e3."""
+    if objective == "regression":
+        return (rng.normal(0, 30, N).astype(np.float32),
+                np.ones(N, np.float32))
+    p = 1 / (1 + np.exp(-rng.normal(0, 2, N)))
+    y = rng.random(N) < 0.5
+    g, h = (p - y).astype(np.float32), (p * (1 - p)).astype(np.float32)
+    if objective == "outlier":
+        g[N // 3] = 1e3
+    return g, h
+
+
+def _ulps(a, b):
+    """Distance in float32 ulps of finite same-sign-or-zero values."""
+    ia = a.view(torch.int32).long()
+    ib = b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7fffffff), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7fffffff), ib)
+    return (ia - ib).abs()
+
+
+def _hold_to_plain(got, ref):
+    """The chip smoke run's gate and, tighter, one float32 ulp: the fixed
+    point holds a key's sum to count * max|v| * N * 2^-76, under half a
+    float32 ulp of any sum that does not cancel to below count * max|v| *
+    N * 2^-50, which none of these inputs' sums does; so only a sum within
+    that of a rounding tie can round apart."""
+    for x, y in zip(got, ref):
+        assert bool(((x - y).abs() <= 1e-4 + 1e-5 * y.abs()).all())
+        assert int(_ulps(x, y).max()) <= 1
+
+
+OBJECTIVES = ["binary", "regression", "outlier"]
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("n_nodes,n_bins", [(1, 255), (2, 16), (16, 255)])
+def test_node_kernel_arithmetic_matches_plain_and_jax(objective, n_nodes,
+                                                      n_bins):
+    """The kernel's fixed-point arithmetic against the float64 plain
+    version and the Pallas kernel (interpret mode), with out-of-range node
+    ids and bins past n_bins among the rows."""
+    rng = np.random.default_rng(20 + n_nodes)
+    N, F = 700, 3
+    bins = rng.integers(0, 256, size=(N, F)).astype(np.int32)
+    node = rng.integers(-1, n_nodes + 2, size=N).astype(np.int32)
+    g, h = _grads(rng, N, objective)
+    args = _t(bins.T.astype(np.uint8), node, g, h)
+    got = gk.node_histogram_kernel_arithmetic(*args, n_nodes, n_bins)
+    assert got[0].shape == (n_nodes, F, n_bins)
+    _hold_to_plain(got, gk.node_histogram_reference(*args, n_nodes, n_bins))
+    jg, jh = pk.mxu_node_histogram(
+        jnp.asarray(bins.T), jnp.asarray(node), jnp.asarray(g),
+        jnp.asarray(h), n_nodes=n_nodes, n_bins=n_bins, block_n=128)
+    scale = max(1.0, float(np.abs(g).max()))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("n_bins", [16, 300])
+def test_fused_kernel_arithmetic_matches_plain_and_jax(objective, n_bins):
+    """The same for the fused kernel's (N, F) ids, ids below 0 and past
+    n_bins among them."""
+    rng = np.random.default_rng(30 + n_bins)
+    N, F = 600, 4
+    bins = rng.integers(-2, n_bins + 3, size=(N, F)).astype(np.int32)
+    g, h = _grads(rng, N, objective)
+    args = _t(bins, g, h)
+    got = gk.histogram_fused_kernel_arithmetic(*args, n_bins)
+    assert got[0].shape == (F, n_bins)
+    _hold_to_plain(got, gk.histogram_fused_reference(*args, n_bins))
+    jg, jh = pk.histogram_fused(jnp.asarray(bins), jnp.asarray(g),
+                                jnp.asarray(h), n_bins=n_bins, block_n=128)
+    scale = max(1.0, float(np.abs(g).max()))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jg),
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(jh), atol=1e-4)
+
+
+def test_kernel_arithmetic_gives_the_same_bits_under_a_row_permutation():
+    """Integer sums do not depend on the order of the rows."""
+    rng = np.random.default_rng(40)
+    N, F = 5000, 6
+    bins = rng.integers(0, 64, size=(N, F)).astype(np.int32)
+    node = rng.integers(-1, 5, size=N).astype(np.int32)
+    g, h = _grads(rng, N, "binary")
+    perm = rng.permutation(N)
+    for rows in (np.arange(N), perm):
+        a = gk.node_histogram_kernel_arithmetic(
+            *_t(bins[rows].T.astype(np.uint8), node[rows], g[rows],
+                h[rows]), 4, 64)
+        b = gk.histogram_fused_kernel_arithmetic(
+            *_t(bins[rows], g[rows], h[rows]), 64)
+        if rows is perm:
+            assert all(_same_bits(x, y) for x, y in zip(a + b, first))
+        first = a + b
+
+
+def test_kernel_arithmetic_gives_ieee_results_for_non_finite_values():
+    """NaN, +inf, -inf and both infinities in one key: the float64
+    scatter-add's results; the finite keys as without them."""
+    rng = np.random.default_rng(41)
+    N = 400
+    bins = rng.integers(0, 8, size=(N, 2)).astype(np.int32)
+    g, h = _grads(rng, N, "binary")
+    g[bins[:, 0] == 1] = np.nan
+    g[np.flatnonzero(bins[:, 0] == 2)[:2]] = np.inf
+    g[np.flatnonzero(bins[:, 0] == 3)[:1]] = -np.inf
+    g[np.flatnonzero(bins[:, 0] == 4)[:1]] = np.inf
+    g[np.flatnonzero(bins[:, 0] == 4)[1:2]] = -np.inf
+    got = gk.histogram_fused_kernel_arithmetic(*_t(bins, g, h), 8)
+    ref = gk.histogram_fused_reference(*_t(bins, g, h), 8)
+    row = got[0][0]
+    assert math.isnan(row[1]) and math.isnan(row[4])
+    assert row[2] == math.inf and row[3] == -math.inf
+    for x, y in zip(got, ref):
+        assert torch.equal(torch.isnan(x), torch.isnan(y))
+        assert torch.equal(torch.isinf(x), torch.isinf(y))
+        assert torch.equal(x[torch.isinf(x)], y[torch.isinf(y)])
+        fin = torch.isfinite(y)
+        assert int(_ulps(x[fin], y[fin]).max()) <= 1
+    # the h histogram saw no non-finite value: its scale and sums as before
+    clean = gk.histogram_fused_kernel_arithmetic(
+        *_t(bins, np.zeros(N, np.float32), h), 8)
+    assert _same_bits(got[1], clean[1])
+
+
+def test_kernel_arithmetic_edge_values():
+    """All-zero g gives zeros; one row gives its value exactly; integer
+    and quarter values sum exactly, as in float64."""
+    rng = np.random.default_rng(42)
+    N = 300
+    bins = rng.integers(0, 8, size=(N, 3)).astype(np.int32)
+    z = np.zeros(N, np.float32)
+    q = (rng.integers(-8, 9, N) / 4).astype(np.float32)
+    got = gk.histogram_fused_kernel_arithmetic(*_t(bins, z, q), 8)
+    assert _same_bits(got[0], torch.zeros((3, 8)))
+    assert _same_bits(got[1], gk.histogram_fused_reference(
+        *_t(bins, z, q), 8)[1])
+    one = gk.node_histogram_kernel_arithmetic(
+        *_t(np.array([[5]], np.uint8), np.array([0], np.int32),
+            np.array([-0.3], np.float32), np.array([1e-30], np.float32)),
+        1, 8)
+    assert float(one[0][0, 0, 5]) == np.float32(-0.3)
+    assert float(one[1][0, 0, 5]) == np.float32(1e-30)
+    assert float(one[0].abs().sum() - one[0][0, 0, 5].abs()) == 0.0
+
+
+def test_fixed_point_words_stay_inside_their_bounds():
+    """hi of every value below 2^62 / N and lo within 2^13, so neither the
+    int64 sums of N rows nor the int32 lo sums of a block overflow."""
+    for v in (np.float32([1.0, -1.0, 0.5]), np.float32([3e38, -1e-45]),
+              np.float32([1e-40, 0.0, -2e-40])):
+        N = 10 ** 6
+        s = gk._fixed_scale(torch.from_numpy(v), N)
+        t = v.astype(np.float64) * 2.0 ** s
+        assert np.abs(np.rint(t)).max() < 2.0 ** 62 / N
+        lo = np.rint((t - np.rint(t)) * 2.0 ** gk.FIXED_LO_BITS)
+        assert np.abs(lo).max() <= 2 ** 13
+
+
+PLAN_SHAPES = [
+    (1_000_000, 28, 255), (1_000_000, 28, 510), (1_000_000, 28, 4080),
+    (200_000, 715, 510), (1_000_000, 28, 16 * 255), (12345, 3, 64 * 255),
+    (1, 1, 1), (77777, 13, 256 * 256), (3_000_000, 5, 16)]
+
+
+@pytest.mark.parametrize("n_rows,n_feat,n_keys", PLAN_SHAPES)
+def test_histogram_plan_keeps_the_kernels_limits(n_rows, n_feat, n_keys):
+    """Every row covered, the grid within CUDA's limits, shared memory
+    within a block's, and at most 2^17 rows a block, where the int32 lo
+    words of its part cannot overflow."""
+    fpb, n_splits, rows, smem = gk._plan(n_rows, n_feat, n_keys, 132)
+    assert 1 <= fpb <= n_feat and 1 <= n_splits <= 65535
+    assert n_splits * rows >= n_rows and (n_splits - 1) * rows < n_rows
+    assert rows <= gk._MAX_SPLIT_ROWS
+    if smem:
+        assert fpb * n_keys * gk._KEY_BYTES <= gk._SMEM_MAX
+    else:
+        assert n_keys * gk._KEY_BYTES > gk._SMEM_MAX and fpb == 1
+
+
+@pytest.mark.parametrize("n_rows,n_feat,n_keys", PLAN_SHAPES)
+def test_histogram_plan_fills_whole_waves(n_rows, n_feat, n_keys):
+    """With the sums in shared memory, the grid fills the fewest whole
+    waves of resident blocks that it fills to _WAVE_FILL, and one more
+    row split would start another wave; in global memory it takes the
+    fewest splits."""
+    sms = 132
+    fpb, n_splits, rows, smem = gk._plan(n_rows, n_feat, n_keys, sms)
+    groups = -(-n_feat // fpb)
+    fewest = max(1, -(-n_rows // gk._MAX_SPLIT_ROWS))
+    if not smem:
+        assert n_splits == fewest
+        return
+    assert n_splits >= fewest
+    if n_splits == n_rows:  # one row a split: no more to split
+        return
+    per_block = fpb * n_keys * gk._KEY_BYTES + 1024
+    slots = sms * max(1, min(gk._SM_SMEM // per_block, 2048 // gk._THREADS))
+    waves = -(-groups * n_splits // slots)
+    assert groups * n_splits >= gk._WAVE_FILL * waves * slots
+    assert groups * (n_splits + 1) > waves * slots
+
+
+def test_leafwise_two_node_histograms_grow_the_three_id_trees(monkeypatch):
+    """cand_pair asks the node-histogram path for the two leaves alone
+    (every other row's id 2 is out of range and adds nothing): the trees
+    are those of the 3-id form, whose discard slot it drops."""
+    from mmlspark_tpu_torch.models.gbdt import engine
+    rng = np.random.default_rng(43)
+    x = rng.normal(size=(800, 5)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] + rng.normal(0, 0.5, 800) > 0).astype(
+        np.float32)
+    p = engine.GBDTParams(objective="binary", num_iterations=3,
+                          num_leaves=8, max_depth=0, max_bin=32,
+                          hist_impl="mxu")
+    orig = engine._histograms
+    seen = []
+
+    def spy(bins, bins_t, g, h, node, n_nodes, n_bins, impl):
+        seen.append(n_nodes)
+        return orig(bins, bins_t, g, h, node, n_nodes, n_bins, impl)
+
+    def three_ids(bins, bins_t, g, h, node, n_nodes, n_bins, impl):
+        hg, hh = orig(bins, bins_t, g, h, node, 3, n_bins, impl)
+        return hg[:2].contiguous(), hh[:2].contiguous()
+
+    monkeypatch.setattr(engine, "_histograms", spy)
+    two = engine.fit_gbdt(x, y, p, device="cpu")
+    assert set(seen) == {2} and len(seen) == 3 * 8
+    monkeypatch.setattr(engine, "_histograms", three_ids)
+    three = engine.fit_gbdt(x, y, p, device="cpu")
+    for name in ("split_leaf", "feature", "threshold", "is_cat", "leaf"):
+        assert torch.equal(getattr(two, name), getattr(three, name)), name
