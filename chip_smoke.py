@@ -18,7 +18,10 @@ Phases, each printing one JSON line:
    prints ptxas' lines of ``hist_accumulate`` and, from ``cuobjdump
    -sass``, the atomic instructions of each of its instantiations (shared
    ``ATOMS`` and compare-and-swap forms counted apart; "not available"
-   without cuobjdump).
+   without cuobjdump). For the GBDT predict library it prints ptxas' lines
+   of both kernels, which must show no spill, and each instantiation's
+   SASS counts (instructions, shared loads, integer-pipe instructions,
+   opcodes), the dump written to ``chiprun_out/gbdt_predict.sass``.
 2. kernel — holds the forward kernel against its plain PyTorch version on
    the card at ragged, cross-attention and slice shapes (and on strided
    views of one qkv projection, as the model passes them), and in bf16 at
@@ -46,20 +49,25 @@ Phases, each printing one JSON line:
    level-wise and leaf-wise predicts against their plain versions at edge
    shapes (ragged rows, odd feature counts, 1-64 nodes, out-of-range node
    ids and bins, 16/255/256 bins, combined ids to 64 x 255, the 255
-   sentinel, K = 3, int8-scaled leaves, tables past shared memory; leaf-wise
-   also -1 no-op rounds, a tree that stops at round 0 and R = 127 rounds)
-   and at the slices' (1M x 28 rows, 16 nodes, 100 trees of depth 5, 100
-   leaf-wise trees of 30 rounds); two launches on the same inputs must give
-   the same bits. The histograms must also equal their fixed-point
+   sentinel, K = 3, int8-scaled leaves, tables past shared memory (taken
+   in chunks of trees), depth 0 and 7; leaf-wise also -1 no-op rounds, a
+   tree that stops at round 0, R = 127 rounds and the pointer trees' edges,
+   ``LW_EDGES``) and at the slices' (1M x 28 rows, 16 nodes, 100 trees of
+   depth 5, 100 leaf-wise trees of 30 rounds); two launches on the same
+   inputs must give the same bits, and the predicts must equal their plain
+   versions bit for bit (and, on the small cases, their arithmetic in
+   plain PyTorch, ``quant_*_kernel_arithmetic``). The histograms must also
+   equal their fixed-point
    arithmetic in plain PyTorch bit for bit (``*_kernel_arithmetic``: the
    integer sums are exact), give the same bits on the same rows permuted,
    and give the float64 plain version's NaN/+inf/-inf on non-finite g;
    cases with all-zero g, one outlier of 1e3, one row, and the leaf-wise
    round's 2 nodes with the other rows' id out of range. Each kernel is
    timed beside its plain version, its bound and (the histograms) two
-   ``torch.bincount`` calls: the predicts at the slice shape, the
-   histograms at every shape their paths launch (``hist_timings``), each
-   with the profile of one call.
+   ``torch.bincount`` calls: the predicts at the slice shape
+   (``predict_timings``, with the profiler's device time of the kernel and,
+   leaf-wise, the trees' path lengths), the histograms at every shape their
+   paths launch (``hist_timings``), each with the profile of one call.
 5. slice  — the serving path at full width: a DataFrame of 13 rows x 4096
    token ids -> ``TorchModel.transform`` (causal TransformerEncoder,
    d_model 512, 4 heads, 4 layers, vocab 32000, bfloat16, random weights
@@ -90,7 +98,9 @@ Phases, each printing one JSON line:
    1e-3 (relative) of the dense walk's, labels differing only where the
    margin is within that delta; training accuracy >= 0.85. Prints the
    warm fit seconds and their parts, ms per iteration, transform rows/s,
-   peak memory and the profile of one boosting iteration.
+   peak memory, the profile of one boosting iteration and the predict
+   kernel timed alone on the fitted trees' own tables and the fit's bins
+   (``fitted_predict_timing``).
 
 8. gbdt_leafwise — the leaf-wise GBDT slice on the same 1M x 28 rows:
    ``LightGBMClassifier(device="cuda").setGrowthPolicy("leafwise")`` (31
@@ -102,7 +112,8 @@ Phases, each printing one JSON line:
    and the training log-loss agrees within 1e-4; the kernel's raw scores
    within 1e-3 (relative) of the dense replay, labels differing only where
    the margin is within that delta; training accuracy >= 0.85. Prints the
-   same timings as ``gbdt``.
+   same timings as ``gbdt``, the fitted trees' path lengths beside the
+   leaf-wise predict kernel's.
 9. gbdt_efb — bench_efb.py's configuration: 200k rows x 2^16 hashed sparse
    columns (zipf 1.3, 24 per row, plus a signal token) ->
    ``LightGBMClassifier(numIterations=20, maxDenseFeatures=512)`` with
@@ -120,7 +131,9 @@ outside a checkout of the repo, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import statistics
 import sys
 import time
@@ -341,42 +354,107 @@ WGMMA_ENTRIES = (("flash_attention_fwd", "flash_fwd_bf16"),
                  ("flash_attention_bwd", "flash_bwd_dkv_bf16"))
 
 
-def sass_atomics(path: str, entry: str):
-    """Per instantiation of the entry function ``entry`` in the library at
-    ``path`` (named by its template arguments), the count of each atomic
-    instruction in ``cuobjdump -sass``, and how many of them are shared
-    (ATOMS) and compare-and-swap (CAS) forms: whether a 64-bit shared add
-    is one instruction or a loop. "not available" without cuobjdump."""
+def sass_functions(path: str):
+    """``cuobjdump -sass`` of the library at ``path``: {mangled function
+    name: [instruction, ...]} with each instruction's opcode and operands,
+    and the raw text; a string saying why not, without cuobjdump."""
     import os
     import re
     import shutil
     import subprocess
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
-        return "not available"
+        return "not available", ""
     r = subprocess.run([exe, "-sass", path], capture_output=True, text=True,
                        timeout=300)
     if r.returncode != 0:
-        return f"not available (cuobjdump exit {r.returncode})"
+        return f"not available (cuobjdump exit {r.returncode})", ""
     out, fn = {}, None
     for line in r.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            t = re.search(entry + r"ILi(\d)ELb(\d)E", m.group(1))
-            where = t and ("shared" if t.group(2) == "1" else "global")
-            fn = f"mode{t.group(1)}_{where}" if t else None
-            if fn:
-                out[fn] = {}
+            fn = m.group(1)
+            out[fn] = []
             continue
-        m = fn and re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.?[A-Z0-9._]*)",
-                             line)
+        m = fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
         if m:
-            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
-    return {fn: {"instructions": c,
-                 "ATOMS": sum(n for k, n in c.items()
-                              if k.startswith("ATOMS")),
-                 "CAS": sum(n for k, n in c.items() if "CAS" in k)}
-            for fn, c in out.items()}
+            out[fn].append(m.group(1).strip())
+    return out, r.stdout
+
+
+def opcode(instruction: str) -> str:
+    """An instruction's opcode with its modifiers, its predicate dropped."""
+    parts = instruction.split()
+    if parts and parts[0].startswith("@"):
+        parts = parts[1:]
+    return parts[0] if parts else ""
+
+
+def sass_atomics(path: str, entry: str):
+    """Per instantiation of the entry function ``entry`` in the library at
+    ``path`` (named by its template arguments), the count of each atomic
+    instruction in ``cuobjdump -sass``, and how many of them are shared
+    (ATOMS) and compare-and-swap (CAS) forms: whether a 64-bit shared add
+    is one instruction or a loop. "not available" without cuobjdump."""
+    import re
+    fns, _ = sass_functions(path)
+    if isinstance(fns, str):
+        return fns
+    out = {}
+    for name, body in fns.items():
+        t = re.search(entry + r"ILi(\d)ELb(\d)E", name)
+        if not t:
+            continue
+        where = "shared" if t.group(2) == "1" else "global"
+        c = {}
+        for ins in body:
+            m = re.match(r"((?:ATOMS|ATOMG|ATOM|RED)\.?[A-Z0-9._]*)",
+                         opcode(ins))
+            if m:
+                c[m.group(1)] = c.get(m.group(1), 0) + 1
+        out[f"mode{t.group(1)}_{where}"] = {
+            "instructions": c,
+            "ATOMS": sum(n for k, n in c.items() if k.startswith("ATOMS")),
+            "CAS": sum(n for k, n in c.items() if "CAS" in k)}
+    return out
+
+
+# integer-pipe opcodes (by their first word) in a predict kernel's SASS
+INTEGER_OPCODES = ("IADD3", "IMAD", "ISETP", "LOP3", "SHF", "PRMT", "SEL",
+                   "LEA", "IMNMX", "VIMNMX", "IABS", "BMSK", "SGXT", "FLO",
+                   "POPC", "VIADD", "I2I", "IDP")
+
+
+def sass_predict(path: str, dump: str = "chiprun_out/gbdt_predict.sass",
+                 entries=("quant_levelwise", "quant_leafwise")):
+    """Per instantiation of the predict kernels in the library at ``path``
+    (its mangled name from the kernel's name on): the SASS instruction
+    count, the shared loads (LDS) and integer-pipe instructions of the
+    whole function, and its opcodes by count. The dump goes to ``dump``,
+    for reading the walk loops by hand."""
+    import os
+    fns, raw = sass_functions(path)
+    if isinstance(fns, str):
+        return fns
+    os.makedirs(os.path.dirname(dump) or ".", exist_ok=True)
+    with open(dump, "w") as f:
+        f.write(raw)
+    out = {}
+    for name, body in fns.items():
+        entry = next((e for e in entries if e in name), None)
+        if entry is None:
+            continue
+        ops = {}
+        for ins in body:
+            op = opcode(ins)
+            ops[op] = ops.get(op, 0) + 1
+        out[name[name.index(entry):][:48]] = {
+            "instructions": len(body),
+            "LDS": sum(n for k, n in ops.items() if k.startswith("LDS")),
+            "integer": sum(n for k, n in ops.items()
+                           if k.split(".")[0] in INTEGER_OPCODES),
+            "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return out
 
 
 def phase_build(torch, env):
@@ -387,6 +465,8 @@ def phase_build(torch, env):
              for lib, entry in WGMMA_ENTRIES}
     atomics = sass_atomics(report["gbdt_histogram"]["path"],
                            "hist_accumulate")
+    predict_ptxas = {e: ptxas_lines(report["gbdt_predict"]["ptxas"], e)
+                     for e in ("quant_levelwise", "quant_leafwise")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"path": v["path"], "ptxas": v["ptxas"]}
                       for k, v in report.items()},
@@ -394,11 +474,19 @@ def phase_build(torch, env):
           "gbdt_histogram_sass_atomics": atomics,
           "hist_accumulate_ptxas": ptxas_lines(
               report["gbdt_histogram"]["ptxas"], "hist_accumulate"),
+          "gbdt_predict_ptxas": predict_ptxas,
+          "gbdt_predict_sass": sass_predict(report["gbdt_predict"]["path"]),
           "gpu": env.gpu_name_and_power_limit(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     for entry, ln in lines.items():
         check(spill_free(ln, 2), f"{entry} spills, serialises its wgmma, or "
               f"was not reported at both head dims: {ln}")
+    for entry, ln in predict_ptxas.items():
+        spills = [x for x in ln if "spill" in x]
+        check(spills and all(" 0 bytes spill stores" in x
+                             and " 0 bytes spill loads" in x
+                             for x in spills),
+              f"{entry} spills or was not reported: {ln}")
 
 
 def phase_kernel(torch):
@@ -831,6 +919,175 @@ def lw_predict_case(torch, gen, T, K, R, d, n, int8_leaves):
     return bins_t, split, feat, thr.to(torch.uint8), leaf
 
 
+
+# the leaf-wise kernel's pointer-tree edges (lw_edge_case)
+LW_EDGES = ("all_no_op", "round0_no_op", "one_leaf_again", "chain_127",
+            "unmade_leaf", "all_sentinel")
+
+
+def lw_edge_case(torch, gen, kind):
+    """Inputs of gbdt_predict_quant_leafwise at one edge of the pointer
+    trees its kernel builds, 9 trees x 2 classes over 13 x 5003 bins, R =
+    30: every round a no-op; round 0 a no-op; leaf 0 split in every round;
+    a 127-round chain (round r splits leaf r at threshold 0, so most rows
+    walk all 127 nodes); rounds that name any leaf up to R, made yet or
+    not; every threshold the 255 sentinel."""
+    R = 127 if kind == "chain_127" else GBDT_LEAVES - 1
+    bins_t, split, feat, thr, leaf = lw_predict_case(torch, gen, 9, 2, R, 13,
+                                                     5003, False)
+    if kind == "all_no_op":
+        split[:] = -1
+    elif kind == "round0_no_op":
+        split[:, :, 0] = -1
+    elif kind == "one_leaf_again":
+        split[:] = 0
+    elif kind == "chain_127":
+        split[:] = torch.arange(R, device="cuda", dtype=torch.int32)
+        thr[:] = 0
+    elif kind == "unmade_leaf":
+        split[:] = torch.randint(0, R + 1, split.shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+    elif kind == "all_sentinel":
+        thr[:] = 255
+    return bins_t, split, feat, thr, leaf
+
+
+def lw_path_stats(torch, bins_t, split, feat, thr) -> dict:
+    """The nodes each row visits per tree of a leaf-wise ensemble: its
+    replay's rounds with pos == split_leaf[r], what the kernel's walk
+    steps through. The mean and max over (row, tree), the mean over (tree,
+    32-row group: a warp's lanes) of the group's longest path, and the
+    sum over rows and trees."""
+    T, K, R = split.shape
+    d, n = bins_t.shape
+    dev = bins_t.device
+    groups = n // 32
+    total = torch.zeros((), dtype=torch.long, device=dev)
+    longest = torch.zeros((), dtype=torch.long, device=dev)
+    warp = torch.zeros((), dtype=torch.float64, device=dev)
+    sl, fl = split.long(), feat.long()
+    for t in range(T):
+        for k in range(K):
+            pos = torch.zeros(n, dtype=torch.long, device=dev)
+            steps = torch.zeros(n, dtype=torch.long, device=dev)
+            for r in range(R):
+                hit = pos == sl[t, k, r]
+                steps += hit
+                vals = bins_t.index_select(0, fl[t, k, r:r + 1])[0]
+                pos = torch.where(hit & (vals > thr[t, k, r]), r + 1, pos)
+            total += steps.sum()
+            longest = torch.maximum(longest, steps.max())
+            if groups:
+                warp += steps[:groups * 32].view(groups, 32).amax(1).double(
+                    ).mean()
+    total, longest, warp = total.item(), longest.item(), warp.item()
+    return {"mean_path": total / (n * T * K), "max_path": longest,
+            "mean_warp_longest_path": warp / (T * K) if groups else None,
+            "visited_nodes": total}
+
+
+def kernel_device_ms(torch, fn, match: str, calls: int = 20) -> dict:
+    """torch.profiler's device time of the kernels whose name holds
+    ``match`` over ``calls`` calls of ``fn`` back to back (after one
+    warm-up), per launch; the wrapper's other kernels (its output's fill,
+    the feature-id max) are listed apart. Unlike ``cuda_ms`` it leaves out
+    the host gaps between launches: each predict wrapper reads the
+    feature-id max back, which synchronises the card every call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ks = [(e.key, e.self_device_time_total, e.count)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    mine = [k for k in ks if match in k[0]]
+    us, count = sum(k[1] for k in mine), sum(k[2] for k in mine)
+    return {"ms": us / count / 1e3 if count else None, "launches": count,
+            "other_kernels_ms_per_call": sum(k[1] for k in ks
+                                             if match not in k[0])
+            / calls / 1e3}
+
+
+def predict_timing(torch, args, depth=None, plain=True) -> dict:
+    """One predict kernel timed on ``args`` (level-wise where ``depth`` is
+    given, else leaf-wise): ``cuda_ms`` of the wrapper, the profiler's
+    device time of the kernel, its plain version (unless ``plain`` is
+    False), the least time the card could take (bins and tables read once,
+    the output written once; a compare per level or per visited node and
+    an add per row and tree) and, leaf-wise, the path lengths."""
+    from mmlspark_tpu_torch.ops import gbdt_kernels as gk
+    bins_t = args[0]
+    d, n = bins_t.shape
+    T, K = args[1].shape[:2]
+    table_bytes = sum(a.numel() * a.element_size() for a in args[1:])
+    if depth is not None:
+        def fn():
+            return gk.gbdt_predict_quant_levelwise(*args, depth=depth)
+
+        def plain_fn():
+            return gk.quant_levelwise_reference(*args, depth=depth)
+        out = {"shape": {"T": T, "K": K, "depth": depth, "d": d, "n": n}}
+        ops = float(n) * T * K * (depth + 1)
+        match, plain_iters = "quant_levelwise", 5
+    else:
+        def fn():
+            return gk.gbdt_predict_quant_leafwise(*args)
+
+        def plain_fn():
+            return gk.quant_leafwise_reference(*args)
+        R = args[1].shape[2]
+        paths = lw_path_stats(torch, *args[:4])
+        out = {"shape": {"T": T, "K": K, "R": R, "d": d, "n": n},
+               "paths": paths}
+        ops = float(paths["visited_nodes"]) + float(n) * T * K
+        match, plain_iters = "quant_leafwise", 3
+    out["ms"] = cuda_ms(torch, fn)
+    out["device"] = kernel_device_ms(torch, fn, match)
+    if plain:
+        out["plain_ms"] = cuda_ms(torch, plain_fn, iters=plain_iters,
+                                  warmup=1)
+    out["library_ms"] = None
+    out["library"] = "none: no single PyTorch call walks an ensemble"
+    out.update(bound(ops, d * n + table_bytes + 4 * n * K, "float32"))
+    return out
+
+
+def predict_timings(torch, gen) -> dict:
+    """Both predict kernels at the synthetic slice shapes: 100 random trees
+    of depth 5 and 100 random leaf-wise trees of 30 rounds over 28 x 1M
+    bins."""
+    N, F, T, D, R = (GBDT_ROWS, GBDT_FEATURES, GBDT_TREES, GBDT_DEPTH,
+                     GBDT_LEAVES - 1)
+    return {"predict": predict_timing(
+                torch, predict_case(torch, gen, T, 1, D, F, N, False), D),
+            "predict_lw": predict_timing(
+                torch, lw_predict_case(torch, gen, T, 1, R, F, N, False))}
+
+
+def fitted_predict_timing(torch, kern, bins) -> dict:
+    """A fitted ensemble's predict kernel timed alone on its own quantized
+    tables (bf16 leaves, widened) and the fit's 1M x 28 bins: the level-wise
+    kernel for a level-wise ensemble, the leaf-wise one otherwise."""
+    from mmlspark_tpu_torch.models.gbdt import engine, leafwise
+    bins_t = bins.T.contiguous()
+    T = int(kern.feature.shape[0])
+    if isinstance(kern, leafwise.LeafwiseEnsemble):
+        S, F, Th, leaf = leafwise.quantize_ensemble_lw(kern, T)
+        args = (bins_t, *(x.to(bins_t.device) for x in (
+            S, F, Th, engine.dequant_leaf(leaf))))
+        return predict_timing(torch, args, plain=False)
+    feat, thr, leaf = engine.quantize_ensemble(kern, T)
+    depth = int(math.log2(leaf.shape[2]))
+    args = (bins_t, *(x.to(bins_t.device) for x in (
+        feat, thr, engine.dequant_leaf(leaf))))
+    return predict_timing(torch, args, depth, plain=False)
+
 def phase_kernel_gbdt(torch):
     """The four GBDT kernels against their plain versions at edge shapes
     and at the slices', two launches on the same inputs bit-identical, then
@@ -953,56 +1210,75 @@ def phase_kernel_gbdt(torch):
                             (F, N, 16 * NB, False)):
         fused_hold({"F": F_, "N": N_, "n_bins": nb, "out_of_range": oor},
                    fused_case(torch, gen, F_, N_, nb, oor), nb)
+    def predict_hold(name, case, args, kernel, plain, arith):
+        """Two launches bit-identical and equal to the plain version bit
+        for bit (max |delta| 0 <= TOL_PREDICT), and to the kernel's
+        arithmetic in plain PyTorch where ``arith`` is given (the small
+        cases)."""
+        got = [kernel(*args) for _ in range(2)]
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = (got[0] - ref).abs().max().item() if ref.numel() else 0.0
+        case.update(kernel=name, max_abs_err=err,
+                    bit_identical_repeat=torch.equal(got[0], got[1]),
+                    equal_to_plain=torch.equal(got[0], ref))
+        if arith is not None:
+            case["equal_to_arithmetic"] = torch.equal(got[0], arith(*args))
+        results.append(case)
+        check(case["bit_identical_repeat"], f"{name}: two launches differ "
+                                            f"{case}")
+        check(got[0].shape == ref.shape and case["equal_to_plain"]
+              and err <= TOL_PREDICT,
+              f"{name} kernel disagrees with its plain version: {case}")
+        check(case.get("equal_to_arithmetic", True),
+              f"{name} kernel differs from its arithmetic: {case}")
+        worst[name] = max(worst[name], err)
+
     # T x K x depth x d x n: ragged n and d, K = 3, int8-scaled leaves,
-    # depth 7 over 256 features, tables too large for shared memory (read
-    # from global memory), the 255 sentinel; last the slice shape
+    # depth 0 (one leaf) and depth 7 over 256 features, tables too large
+    # for shared memory (taken in chunks of trees), the 255 sentinel; last
+    # the slice shape
     for T, K, depth, d, n, q8 in ((7, 3, 4, 11, 777, False),
                                   (7, 3, 4, 11, 777, True),
                                   (3, 1, 1, 1, 5, False),
+                                  (3, 2, 0, 5, 1001, False),
                                   (5, 2, 7, 256, 3001, True),
                                   (2000, 3, 5, 13, 4099, False),
                                   (GBDT_TREES, 1, GBDT_DEPTH, F, N, False)):
-        args = predict_case(torch, gen, T, K, depth, d, n, q8)
-        got = [gk.gbdt_predict_quant_levelwise(*args, depth=depth)
-               for _ in range(2)]
-        ref = gk.quant_levelwise_reference(*args, depth=depth)
-        torch.cuda.synchronize()
-        err = (got[0] - ref).abs().max().item()
-        case = {"kernel": "predict", "T": T, "K": K, "depth": depth, "d": d,
-                "n": n, "int8_leaves": q8, "max_abs_err": err,
-                "bit_identical_repeat": torch.equal(got[0], got[1]),
-                "equal_to_plain": torch.equal(got[0], ref)}
-        results.append(case)
-        check(case["bit_identical_repeat"],
-              f"predict: two launches differ {case}")
-        check(got[0].shape == (n, K) and err <= TOL_PREDICT,
-              f"predict kernel disagrees with its plain version: {case}")
-        worst["predict"] = max(worst["predict"], err)
+        predict_hold(
+            "predict", {"T": T, "K": K, "depth": depth, "d": d, "n": n,
+                        "int8_leaves": q8},
+            predict_case(torch, gen, T, K, depth, d, n, q8),
+            functools.partial(gk.gbdt_predict_quant_levelwise, depth=depth),
+            functools.partial(gk.quant_levelwise_reference, depth=depth),
+            functools.partial(gk.quant_levelwise_kernel_arithmetic,
+                              depth=depth) if n < N else None)
     # T x K x R x d x n: ragged n and odd d, K = 3, int8-scaled leaves, R =
     # 127 rounds (the cap) over 256 features, tables too large for shared
-    # memory, a one-round tree; last the leaf-wise slice shape
-    for T, K, R, d, n, q8 in ((7, 3, 9, 11, 777, False),
-                              (7, 3, 9, 11, 777, True),
-                              (3, 1, 1, 1, 5, False),
-                              (5, 2, 127, 256, 3001, True),
-                              (2000, 3, GBDT_LEAVES - 1, 13, 4099, False),
-                              (GBDT_TREES, 1, GBDT_LEAVES - 1, F, N, False)):
-        args = lw_predict_case(torch, gen, T, K, R, d, n, q8)
-        got = [gk.gbdt_predict_quant_leafwise(*args) for _ in range(2)]
-        ref = gk.quant_leafwise_reference(*args)
-        torch.cuda.synchronize()
-        err = (got[0] - ref).abs().max().item()
-        case = {"kernel": "predict_lw", "T": T, "K": K, "R": R, "d": d,
-                "n": n, "int8_leaves": q8, "max_abs_err": err,
-                "bit_identical_repeat": torch.equal(got[0], got[1]),
-                "equal_to_plain": torch.equal(got[0], ref)}
-        results.append(case)
-        check(case["bit_identical_repeat"],
-              f"leaf-wise predict: two launches differ {case}")
-        check(got[0].shape == (n, K) and err <= TOL_PREDICT,
-              f"leaf-wise predict kernel disagrees with its plain version: "
-              f"{case}")
-        worst["predict_lw"] = max(worst["predict_lw"], err)
+    # memory, a one-round tree; then the pointer trees' edges
+    # (lw_edge_case); last the leaf-wise slice shape
+    lw_cases = [({"T": T, "K": K, "R": R, "d": d, "n": n, "int8_leaves": q8},
+                 lw_predict_case(torch, gen, T, K, R, d, n, q8))
+                for T, K, R, d, n, q8 in (
+                    (7, 3, 9, 11, 777, False), (7, 3, 9, 11, 777, True),
+                    (3, 1, 1, 1, 5, False), (5, 2, 127, 256, 3001, True),
+                    (2000, 3, GBDT_LEAVES - 1, 13, 4099, False))]
+    for kind in LW_EDGES:
+        args = lw_edge_case(torch, gen, kind)
+        T, K, R = args[1].shape
+        lw_cases.append(({"T": T, "K": K, "R": R, "d": args[0].shape[0],
+                          "n": args[0].shape[1], "edge": kind}, args))
+    lw_cases.append(({"T": GBDT_TREES, "K": 1, "R": GBDT_LEAVES - 1, "d": F,
+                      "n": N, "int8_leaves": False},
+                     lw_predict_case(torch, gen, GBDT_TREES, 1,
+                                     GBDT_LEAVES - 1, F, N, False)))
+    for case, args in lw_cases:
+        predict_hold("predict_lw", case, args, gk.gbdt_predict_quant_leafwise,
+                     gk.quant_leafwise_reference,
+                     gk.quant_leafwise_kernel_arithmetic
+                     if case["T"] * case["K"] <= 100 and case["n"] < N
+                     else None)
+    del lw_cases
 
     # timing at the paths' shapes (cuda_ms: back-to-back calls, after
     # warm-up); the kernels line takes row 4 at 16 nodes
@@ -1010,34 +1286,7 @@ def phase_kernel_gbdt(torch):
     timing["node_hist"] = next(
         e for e in timing["node_hist_shapes"]
         if e["path"] == "level-wise" and e["shape"]["n_nodes"] == 16)
-    T, D = GBDT_TREES, GBDT_DEPTH
-    bins_t, feat, thr, leaf = predict_case(torch, gen, T, 1, D, F, N, False)
-    table_bytes = T * (2 * (2 ** D - 1) + 4 * 2 ** D)
-    timing["predict"] = {
-        "shape": {"T": T, "K": 1, "depth": D, "d": F, "n": N},
-        "ms": cuda_ms(torch, lambda: gk.gbdt_predict_quant_levelwise(
-            bins_t, feat, thr, leaf, depth=D)),
-        "plain_ms": cuda_ms(torch, lambda: gk.quant_levelwise_reference(
-            bins_t, feat, thr, leaf, depth=D), iters=5),
-        "library_ms": None,
-        "library": "none: no single PyTorch call walks an ensemble",
-        # a compare per level and an add per tree, per row
-        **bound(float(N) * T * (D + 1), F * N + table_bytes + 4 * N,
-                "float32")}
-    R = GBDT_LEAVES - 1
-    args = lw_predict_case(torch, gen, T, 1, R, F, N, False)
-    lw_table_bytes = T * (4 * R + 2 * R + 4 * (R + 1))
-    timing["predict_lw"] = {
-        "shape": {"T": T, "K": 1, "R": R, "d": F, "n": N},
-        "ms": cuda_ms(torch, lambda: gk.gbdt_predict_quant_leafwise(*args)),
-        "plain_ms": cuda_ms(torch, lambda: gk.quant_leafwise_reference(
-            *args), iters=3, warmup=1),
-        "library_ms": None,
-        "library": "none: no single PyTorch call replays an ensemble",
-        # a compare-select per (row, tree, round) and an add per (row,
-        # tree); the bins read once, the tables once, the output written
-        **bound(float(N) * T * (R + 1), F * N + lw_table_bytes + 4 * N,
-                "float32")}
+    timing.update(predict_timings(torch, gen))
     emit({"phase": "kernel_gbdt", "cases": results,
           "max_abs_err": worst, "timing": timing})
     return worst, timing
@@ -1366,6 +1615,7 @@ def phase_gbdt(torch, env, dev="cuda"):
 
     serving = check_transform(model, df, y, "predict")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fitted = fitted_predict_timing(torch, kern, bins)
 
     # the profile of one boosting iteration at the fit's shapes
     bins_t = bins.T.contiguous()
@@ -1394,6 +1644,7 @@ def phase_gbdt(torch, env, dev="cuda"):
           "identical_trees_vs_segment": sum(identical),
           "train_log_loss": losses[0], "train_log_loss_segment": losses[1],
           **serving, "peak_mem_gb": peak_gb,
+          "predict_kernel_on_fitted_trees": fitted,
           "gpu": env.gpu_name_and_power_limit(),
           "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
     return {"node_hist": fit_launches["node_hist"], "fused": fused_launches,
@@ -1427,6 +1678,7 @@ def phase_gbdt_leafwise(torch, env, dev="cuda"):
                                             dev)
     serving = check_transform(model, df, y, "predict_lw")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fitted = fitted_predict_timing(torch, kern, bins)
 
     # the profile of one boosting iteration at the fit's shapes
     bins_t = bins.T.contiguous()
@@ -1458,6 +1710,7 @@ def phase_gbdt_leafwise(torch, env, dev="cuda"):
           "identical_trees_vs_segment": sum(identical),
           "train_log_loss": losses[0], "train_log_loss_segment": losses[1],
           **serving, "peak_mem_gb": peak_gb,
+          "predict_kernel_on_fitted_trees": fitted,
           "gpu": env.gpu_name_and_power_limit(),
           "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
     return {"node_hist": fit_launches["node_hist"],

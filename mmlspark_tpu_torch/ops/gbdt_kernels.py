@@ -14,8 +14,8 @@ a plain int attribute, ``launches``, and nowhere else.
   summed leaves of a level-wise ensemble over uint8 tables;
   ``csrc/gbdt_predict.cu``.
 * :func:`gbdt_predict_quant_leafwise` (``_gbdt_quant_lw_kernel``) — the
-  same for a leaf-wise ensemble, replaying each tree's split sequence;
-  ``csrc/gbdt_predict.cu``.
+  same for a leaf-wise ensemble, each tree's split sequence turned into a
+  pointer tree that a row walks down its path; ``csrc/gbdt_predict.cu``.
 
 The histogram kernels sum in integer fixed point: each g and h becomes a
 64-bit integer word and a 32-bit word of 14 more fraction bits, at one
@@ -37,6 +37,12 @@ rounding and differ at most in that last bit, rarely; a key whose values
 cancel below that is held only to the bound. So a fit through a kernel
 and through a plain path grow the same trees, where float32 sums in two
 orders would break a near-tie in the split search differently.
+
+The predict kernels add each row's leaves in tree order from 0, as their
+plain versions do, so the two agree bit for bit;
+:func:`quant_levelwise_kernel_arithmetic` and
+:func:`quant_leafwise_kernel_arithmetic` repeat what the kernels compute
+(the packed node words, the pointer trees and their walk) for the tests.
 
 Also here, as plain PyTorch (the JAX package's plain-XLA functions):
 :func:`segment_histogram`, :func:`compare_reduce_histogram` and
@@ -465,6 +471,38 @@ def quant_levelwise_reference(bins_t, feature, threshold, leaf, depth: int):
     return out
 
 
+def levelwise_node_words(feature, threshold):
+    """The level-wise kernel's packed nodes: (T, K, 2^depth - 1) int64
+    words feature | threshold << 8 (16 bits), as csrc/gbdt_predict.cu
+    stages them."""
+    return feature.long() | threshold.long() << 8
+
+
+def quant_levelwise_kernel_arithmetic(bins_t, feature, threshold, leaf,
+                                      depth: int):
+    """What the level-wise CUDA kernel computes, in plain PyTorch: the heap
+    descent over :func:`levelwise_node_words` (node h's children are 2h + 1
+    and 2h + 2; a row goes right where its bin shifted to the threshold's
+    byte, bin << 8, exceeds the whole word), each tree's leaf added in tree
+    order from 0. Equal to :func:`quant_levelwise_reference` bit for bit;
+    for the tests and the chip smoke run, not the main path."""
+    _check_tables(bins_t, feature, threshold, leaf, depth)
+    T, K, nn = feature.shape
+    n = bins_t.shape[1]
+    words = levelwise_node_words(feature, threshold)
+    lf = leaf.float()
+    out = torch.zeros((n, K), dtype=torch.float32, device=bins_t.device)
+    for t in range(T):
+        for k in range(K):
+            h = torch.zeros(n, dtype=torch.long, device=bins_t.device)
+            for _ in range(depth):
+                w = words[t, k][h]
+                b = bins_t.gather(0, (w & 0xFF)[None, :])[0].long() << 8
+                h = 2 * h + torch.where(b > w, 2, 1)
+            out[:, k] += lf[t, k][h - nn]
+    return out
+
+
 def gbdt_predict_quant_levelwise(bins_t, feature, threshold, leaf, *,
                                  depth: int):
     """Quantized level-wise ensemble predict: one launch scores every tree.
@@ -559,6 +597,87 @@ def quant_leafwise_reference(bins_t, split_leaf, feature, threshold, leaf):
                 right = (pos == sl[t, k, r]) & (vals.long() > thr[t, k, r])
                 pos = torch.where(right, r + 1, pos)
             out[:, k] += lf[t, k][pos]
+    return out
+
+
+def leafwise_node_words(split_leaf, feature, threshold):
+    """The leaf-wise kernel's pointer trees, as csrc/gbdt_predict.cu builds
+    them in each block: (T, K, 2R + 2) int64 words of 32 bits, feature |
+    threshold << 8 | left << 16 | right << 24, each child a word index. Word 0
+    is the entry, a node that always goes left (threshold 255), to the
+    root; word 1 + r round r's node; word R + 1 + l leaf l, a node whose
+    children are itself. With next(r, v) the first round after r that
+    splits leaf v: the root is next(-1, 0), left(r) = next(r,
+    split_leaf[r]) else leaf split_leaf[r], right(r) = next(r, r + 1) else
+    leaf r + 1 (a no-op round's left is leaf 0; nothing reaches it)."""
+    T, K, R = split_leaf.shape
+    dev = split_leaf.device
+    nl = R + 1
+    s = split_leaf.long()
+    r = torch.arange(R, device=dev)
+    left = nl + torch.where((s >= 0) & (s <= R), s, 0)
+    right = (nl + r + 1).expand(T, K, R).clone()
+    root = torch.full((T, K), nl, dtype=torch.long, device=dev)
+    # from the last round down: the first later match is written last
+    for rp in range(R - 1, -1, -1):
+        v = s[:, :, rp:rp + 1]
+        later = r < rp
+        left = torch.where(later & (s == v), rp + 1, left)
+        right = torch.where(later & (v == r + 1), rp + 1, right)
+        root = torch.where(v[:, :, 0] == 0, rp + 1, root)
+    nodes = (feature.long() | threshold.long() << 8 | left << 16
+             | right << 24)
+    leaves = (0xFF00 | (nl + torch.arange(nl, device=dev)) * 0x01010000
+              ).expand(T, K, nl)
+    entry = 0xFF00 | root * 0x01010000
+    return torch.cat([entry[:, :, None], nodes, leaves], dim=2)
+
+
+def leafwise_path_lengths(bins_t, words):
+    """(T, K, n) rounds each row visits per tree, walking the pointer trees
+    of :func:`leafwise_node_words` as the kernel does (a row goes right
+    where its bin << 8 exceeds the word's low 16 bits, threshold << 8 |
+    feature), and the (T, K, n) leaf each row ends on."""
+    T, K, nw = words.shape
+    R = nw // 2 - 1
+    n = bins_t.shape[1]
+    dev = bins_t.device
+    steps = torch.zeros((T, K, n), dtype=torch.long, device=dev)
+    leaves = torch.zeros((T, K, n), dtype=torch.long, device=dev)
+    for t in range(T):
+        for k in range(K):
+            tw = words[t, k]
+            c = torch.zeros(n, dtype=torch.long, device=dev)
+            for _ in range(R + 1):
+                w = tw[c]
+                b = bins_t.gather(0, (w & 0xFF)[None, :])[0].long()
+                c = torch.where(b << 8 > (w & 0xFFFF), w >> 24,
+                                (w >> 16) & 0xFF)
+                on = c <= R
+                if not bool(on.any()):
+                    break
+                steps[t, k] += on.long()
+            leaves[t, k] = c - (R + 1)
+    return steps, leaves
+
+
+def quant_leafwise_kernel_arithmetic(bins_t, split_leaf, feature, threshold,
+                                     leaf):
+    """What the leaf-wise CUDA kernel computes, in plain PyTorch: each
+    tree's split sequence turned into :func:`leafwise_node_words`, each row
+    walked down its path to a leaf, the leaves added in tree order from 0.
+    Equal to :func:`quant_leafwise_reference` bit for bit; for the tests
+    and the chip smoke run, not the main path."""
+    _check_lw_tables(bins_t, split_leaf, feature, threshold, leaf)
+    T, K, _ = split_leaf.shape
+    n = bins_t.shape[1]
+    words = leafwise_node_words(split_leaf, feature, threshold)
+    _, leaves = leafwise_path_lengths(bins_t, words)
+    lf = leaf.float()
+    out = torch.zeros((n, K), dtype=torch.float32, device=bins_t.device)
+    for t in range(T):
+        for k in range(K):
+            out[:, k] += lf[t, k][leaves[t, k]]
     return out
 
 

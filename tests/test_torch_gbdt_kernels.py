@@ -17,7 +17,14 @@ under a row permutation it must give the same bits. The
 quantized predicts are held at atol 1e-6 against numpy walks copied from
 tests/test_pallas_kernels.py:295-327 (a heap descent, a split-sequence
 replay); the JAX kernels themselves raise on this jax, which lost
-``pl.load``.
+``pl.load``. What the predict kernels compute, repeated in plain PyTorch
+(``quant_*_kernel_arithmetic``: packed node words, the leaf-wise pointer
+trees and their walk), is held bit for bit against the plain versions and
+at atol 1e-6 against those numpy walks and the JAX package's dense paths
+(``predict_tree_lw_t``, ``_predict_tree_t``), over the pointer trees' edge
+cases (no-op rounds, a leaf split again and again, a 127-round chain,
+leaves not made yet, the 255 sentinel, K = 3 with int8 leaves, R = 1,
+depth 0 and 7).
 """
 
 import math
@@ -643,3 +650,205 @@ def test_leafwise_two_node_histograms_grow_the_three_id_trees(monkeypatch):
     three = engine.fit_gbdt(x, y, p, device="cpu")
     for name in ("split_leaf", "feature", "threshold", "is_cat", "leaf"):
         assert torch.equal(getattr(two, name), getattr(three, name)), name
+
+
+# ------------------------------------------ the predict kernels' arithmetic
+
+def _jax_leafwise(bins, split, feat, thr, leaf):
+    """The JAX package's dense leaf-wise replay (numeric splits), tree by
+    tree, summed in tree order in float32."""
+    from mmlspark_tpu.models.gbdt import leafwise as jlw
+    T, K, R = split.shape
+    bt = jnp.asarray(bins.T)
+    W = jnp.zeros((R, jlw.CAT_WORDS), jnp.uint32)
+    IC = jnp.zeros(R, bool)
+    out = np.zeros((bins.shape[0], K), np.float32)
+    for t in range(T):
+        for k in range(K):
+            out[:, k] += np.asarray(jlw.predict_tree_lw_t(
+                bt, jnp.asarray(split[t, k]),
+                jnp.asarray(feat[t, k], jnp.int32),
+                jnp.asarray(thr[t, k], jnp.int32), W, IC,
+                jnp.asarray(leaf[t, k]), has_cats=False))
+    return out
+
+
+def _jax_levelwise(bins, feat, thr, leaf, depth):
+    """The JAX package's dense level-wise walk, tree by tree, summed in
+    tree order in float32."""
+    from mmlspark_tpu.models.gbdt import engine as jeng
+    T, K, _ = feat.shape
+    bt = jnp.asarray(bins.T)
+    out = np.zeros((bins.shape[0], K), np.float32)
+    for t in range(T):
+        for k in range(K):
+            out[:, k] += np.asarray(jeng._predict_tree_t(
+                bt, jnp.asarray(feat[t, k], jnp.int32),
+                jnp.asarray(thr[t, k], jnp.int32), jnp.asarray(leaf[t, k]),
+                depth))
+    return out
+
+
+# the pointer trees' edges: every round a no-op, round 0 a no-op, leaf 0
+# split in every round, a 127-round chain (round r splits leaf r at
+# threshold 0, so most rows walk all 127 nodes), rounds that name leaves
+# not made yet, the 255 sentinel on every other round, K = 3 with int8
+# leaves, R = 1; and random split sequences
+LW_KINDS = ["all_no_op", "round0_no_op", "one_leaf_again", "chain_127",
+            "unmade_leaf", "sentinel", "k3_int8", "one_round", "random"]
+
+
+def _lw_edge(kind):
+    rng = np.random.default_rng(LW_KINDS.index(kind) + 60)
+    T, K, d, n = 4, 3 if kind == "k3_int8" else 1, 6, 257
+    R = {"chain_127": 127, "one_round": 1}.get(kind, 30)
+    bins = rng.integers(0, 256 if kind == "chain_127" else 64,
+                        size=(n, d)).astype(np.uint8)
+    split, feat, thr, leaf = _lw_tables(rng, T, K, R, d, kind == "k3_int8")
+    if kind == "all_no_op":
+        split[:] = -1
+    elif kind == "round0_no_op":
+        split[:, :, 0] = -1
+    elif kind == "one_leaf_again":
+        split[:] = 0
+    elif kind == "chain_127":
+        split[:] = np.arange(R, dtype=np.int32)
+        thr[:] = 0
+    elif kind == "unmade_leaf":
+        split[:] = rng.integers(0, R + 1, size=split.shape)
+    elif kind == "sentinel":
+        thr[:, :, ::2] = 255
+    return bins, split, feat, thr, leaf
+
+
+@pytest.mark.parametrize("kind", LW_KINDS)
+def test_leafwise_kernel_arithmetic_matches_plain_and_numpy(kind):
+    """The pointer-tree walk gives the replay's leaf on every row: the
+    plain version's bits, and the numpy replay's sums within 1e-6."""
+    bins, split, feat, thr, leaf = _lw_edge(kind)
+    args = _t(bins.T, split, feat, thr, leaf)
+    got = gk.quant_leafwise_kernel_arithmetic(*args)
+    assert got.shape == (bins.shape[0], split.shape[1])
+    assert _same_bits(got, gk.quant_leafwise_reference(*args))
+    np.testing.assert_allclose(got.numpy(),
+                               _walk_leafwise(bins, split, feat, thr, leaf),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", LW_KINDS)
+def test_leafwise_kernel_arithmetic_matches_jax_dense(kind):
+    """... and the JAX package's dense replay (predict_tree_lw_t) within
+    1e-6 (float32 sums of the same leaves in the same order)."""
+    bins, split, feat, thr, leaf = _lw_edge(kind)
+    got = gk.quant_leafwise_kernel_arithmetic(*_t(bins.T, split, feat, thr,
+                                                  leaf))
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_leafwise(bins, split, feat, thr, leaf),
+                               atol=1e-6)
+
+
+# (T, K, depth, d, n, int8 leaves): depth 0 (one leaf), 1, 5 and 7, K = 3
+# with int8 leaves; the 255 sentinel on every fifth node
+LVL_CASES = [(3, 1, 0, 4, 101, False), (4, 2, 1, 3, 257, False),
+             (5, 1, 5, 7, 333, False), (3, 3, 5, 6, 200, True),
+             (2, 1, 7, 9, 300, False)]
+
+
+def _lvl_case(T, K, depth, d, n, int8_leaves):
+    from mmlspark_tpu_torch.models.gbdt.engine import quantize_leaves_int8
+    rng = np.random.default_rng(depth * 10 + K)
+    nodes = 2 ** depth - 1
+    bins = rng.integers(0, 64, size=(n, d)).astype(np.uint8)
+    feat = rng.integers(0, d, size=(T, K, nodes)).astype(np.uint8)
+    thr = rng.integers(0, 64, size=(T, K, nodes)).astype(np.uint8)
+    thr.reshape(-1)[::5] = 255
+    leaf32 = rng.normal(size=(T, K, 2 ** depth)).astype(np.float32)
+    if int8_leaves:
+        q, scale = quantize_leaves_int8(leaf32)
+        leaf = (q.astype(np.float32) * scale).astype(np.float32)
+    else:
+        leaf = torch.from_numpy(leaf32).to(torch.bfloat16).float().numpy()
+    return bins, feat, thr, leaf
+
+
+@pytest.mark.parametrize("case", LVL_CASES)
+def test_levelwise_kernel_arithmetic_matches_plain_and_numpy(case):
+    """The packed-node descent: the plain version's bits, the numpy heap
+    walk within 1e-6."""
+    depth = case[2]
+    bins, feat, thr, leaf = _lvl_case(*case)
+    args = _t(bins.T, feat, thr, leaf)
+    got = gk.quant_levelwise_kernel_arithmetic(*args, depth=depth)
+    assert got.shape == (bins.shape[0], feat.shape[1])
+    assert _same_bits(got, gk.quant_levelwise_reference(*args, depth=depth))
+    np.testing.assert_allclose(
+        got.numpy(), _walk_levelwise(bins, feat, thr, leaf, depth),
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("case", LVL_CASES)
+def test_levelwise_kernel_arithmetic_matches_jax_dense(case):
+    """... and the JAX package's dense walk (_predict_tree_t) within 1e-6."""
+    depth = case[2]
+    bins, feat, thr, leaf = _lvl_case(*case)
+    got = gk.quant_levelwise_kernel_arithmetic(*_t(bins.T, feat, thr, leaf),
+                                               depth=depth)
+    np.testing.assert_allclose(
+        got.numpy(), _jax_levelwise(bins, feat, thr, leaf, depth), atol=1e-6)
+
+
+def test_leafwise_node_words_stay_in_their_byte_fields():
+    """At R = 127 (the cap) every word fits 32 bits: feature and threshold
+    in bytes 0-1, children in bytes 2-3 (word indices up to 2R + 1 = 255).
+    The entry goes left (threshold 255, feature 0) to the root; a real
+    round's left child is its own leaf's word or a later round, its right
+    child leaf r + 1's word or a later round; a leaf's children are
+    itself."""
+    rng = np.random.default_rng(70)
+    T, K, R, d = 6, 2, 127, 256
+    split, feat, thr, _ = _lw_tables(rng, T, K, R, d, False)
+    thr[:, :, ::3] = 255
+    feat[:, :, ::5] = 255
+    words = gk.leafwise_node_words(*_t(split, feat, thr))
+    nl = R + 1
+    assert words.shape == (T, K, 2 * nl)
+    assert bool((words >= 0).all()) and bool((words < 2 ** 32).all())
+    left, right = (words >> 16) & 0xFF, words >> 24
+    assert bool((left >= 1).all()) and bool((right >= 1).all())
+    assert torch.equal(words[:, :, 0] & 0xFFFF, torch.full((T, K), 0xFF00))
+    assert torch.equal(left[:, :, 0], right[:, :, 0])
+    nodes = words[:, :, 1:nl]
+    assert torch.equal(nodes & 0xFF, torch.from_numpy(feat).long())
+    assert torch.equal((nodes >> 8) & 0xFF, torch.from_numpy(thr).long())
+    own = nl + torch.arange(nl)
+    assert torch.equal(words[:, :, nl:], (0xFF00 | own * 0x01010000).expand(
+        T, K, nl))
+    r = torch.arange(R)
+    sl = torch.from_numpy(split).long()
+    real = sl >= 0
+    later = lambda c: (c <= R) & (c - 1 > r)  # noqa: E731
+    assert bool(((left[:, :, 1:nl] == nl + sl) | later(left[:, :, 1:nl]))
+                [real].all())
+    assert bool(((right[:, :, 1:nl] == nl + r + 1)
+                 | later(right[:, :, 1:nl])).all())
+
+
+def test_leafwise_path_lengths_count_the_replay_rounds_that_match():
+    """The walk's steps are the replay's rounds with pos == split_leaf[r]
+    (a 127-round chain walks all 127 on rows that always go right) and it
+    ends on the replay's leaf."""
+    bins, split, feat, thr, leaf = _lw_edge("chain_127")
+    steps, leaves = gk.leafwise_path_lengths(
+        *_t(bins.T), gk.leafwise_node_words(*_t(split, feat, thr)))
+    n = bins.shape[0]
+    for t in range(split.shape[0]):
+        pos = np.zeros(n, np.int64)
+        hits = np.zeros(n, np.int64)
+        for r in range(split.shape[2]):
+            hit = pos == split[t, 0, r]
+            hits += hit
+            pos[hit & (bins[:, feat[t, 0, r]] > thr[t, 0, r])] = r + 1
+        assert np.array_equal(steps[t, 0].numpy(), hits)
+        assert np.array_equal(leaves[t, 0].numpy(), pos)
+    assert int(steps.max()) == 127
+    assert bool((steps == 127).float().mean() > 0.3)
