@@ -123,6 +123,36 @@ Phases, each printing one JSON line:
    transform takes the dense replay (no predict launch), training accuracy
    >= 0.95.
 
+10. vision_ops — ``ImageTransformer`` (resize up and down, crop, flip,
+   colorFormat, blur, gaussianKernel, threshold: ``VISION_CHAIN``) on 512
+   images of 256 x 256 x 3 (numpy seed 0), one bucket crossing to the card
+   once; the uint8 result within 1 count of the same stage on the CPU.
+   Rows/s (host clock, median of 3 after warm-up, rows built included).
+11. vision_serve — (a) ``ModelDownloader`` over a temporary copy of
+   ``zoo/`` -> ``ResNet20_shapes10`` (sha256 checked) ->
+   ``TorchModel.setModelSchema`` -> transform of ``make_shapes10(4000,
+   seed=8)``: accuracy >= 0.99 and rows/s. (b) ``make_torchvision_state()``
+   (ResNet-50, widths 256-2048) -> ``import_resnet50(preprocess=
+   "imagenet_uint8")`` -> ``ImageFeaturizer(cutOutputLayers=1)`` in bf16 on
+   1024 images of 256 x 256 resized to 224: the 2048-d features of 16 rows
+   within 5e-2 (relative L2, each row) of the same rows in f32 on the CPU,
+   and rows/s. (c) the BiLSTM tagger's default config on 64 x 256 tokens,
+   bf16 on the card against f32 on the CPU, to the same bar; and whether
+   torch's LSTM takes bf16 on the card (a probe: the port's recurrence is
+   float32).
+12. vision_train — (a) bench.py's shape: ``TorchLearner`` on 245,760
+   uint8 32 x 32 x 3 images (numpy seed 0), CIFAR ResNet-20, batch 12288,
+   momentum 0.01 / 0.9, bf16, 3 epochs of 20 steps on the scan path: step
+   ms and imgs/s (median of epochs 2-3), peak memory and the profile of one
+   step. (b) the zoo's shapes10 recipe (20,000 rows, 20 epochs, batch 512,
+   momentum 0.05): held-out accuracy >= 0.98 on ``make_shapes10(4000,
+   seed=8)``; one step's gradients (the fit's init, 512 rows) in f32 (TF32
+   off) on the card within 3e-2 (relative L2, each parameter) of the same
+   step in f32 on the CPU, and in bf16 a median within 3e-2 (the worst
+   parameter printed: bf16 rounding alone puts a GroupNorm scale's
+   gradient ~3e-2 from f32); the profile of one recipe step.
+   The vision phases launch no kernel of the kernels line (checked).
+
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
 the last line; nothing falls back to the CPU. Without a CUDA device, or
@@ -197,6 +227,31 @@ EFB_ROWS, EFB_COLS, EFB_NNZ, EFB_ITERS, EFB_DENSE = 200_000, 1 << 16, 24, 20, 51
 # 203 bundles EFB plans on that data
 EFB_FIT_FEATURES = 715
 TOL_EFB_ACCURACY = 0.95
+# the image paths (no kernel of the table): an ImageTransformer chain on
+# 512 images of 256 x 256 x 3, within 1 count of the CPU's
+VISION_OPS_ROWS, VISION_OPS_HW = 512, 256
+VISION_CHAIN = (("resize", (320, 320)), ("crop", (16, 16, 288, 288)),
+                ("flip", (1,)), ("colorFormat", ("BGR2RGB",)),
+                ("blur", (3, 5)), ("gaussianKernel", (5, 1.5)),
+                ("resize", (224, 224)), ("threshold", (200.0, 255.0,
+                                                       "trunc")))
+TOL_VISION_COUNTS = 1
+# the zoo's ResNet20_shapes10 (held-out 0.9985 when it was built,
+# zoo/README.md) on make_shapes10(4000, seed=8)
+ZOO_EVAL_ROWS, TOL_ZOO_ACCURACY = 4000, 0.99
+# ResNet-50 (widths 256-2048) features of 1024 images of 256 x 256 resized
+# to 224, bf16 on the card, against 16 rows in f32 on the CPU; the BiLSTM
+# tagger's default config on 64 x 256 tokens: max relative L2 of a row
+FEAT_ROWS, FEAT_HW, FEAT_CPU_ROWS = 1024, 256, 16
+BILSTM_ROWS, BILSTM_SEQ = 64, 256
+TOL_VISION_L2 = 5e-2
+# bench.py:82-99: CIFAR ResNet-20, 20 steps of 12288 an epoch, momentum
+# SGD 0.01 / 0.9, bf16
+BENCH_ROWS, BENCH_BATCH, BENCH_STEPS, BENCH_EPOCHS = 245_760, 12288, 20, 3
+BENCH_LR = 0.01
+# the zoo's shapes10 recipe (tools/build_zoo.py:34-56, 94)
+RECIPE_ROWS, RECIPE_EPOCHS, RECIPE_BATCH, RECIPE_LR = 20_000, 20, 512, 0.05
+TOL_RECIPE_ACCURACY = 0.98
 
 
 def emit(obj):
@@ -2015,6 +2070,346 @@ def phase_train(torch, env):
     return launches
 
 
+# ------------------------------------------------------------------ vision
+
+def image_frame(x, col="image"):
+    """A DataFrame of image rows (the ImageSchema struct) from NHWC uint8."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.core.schema import make_image_row
+    from mmlspark_tpu_torch.core.utils import object_column
+    rows = object_column([make_image_row(f"img{i}", *x[i].shape, x[i])
+                          for i in range(len(x))])
+    return DataFrame({col: rows})
+
+
+def host_rows_per_s(torch, fn, rows: int, dev: str, repeats: int = 3):
+    """Rows per second of ``fn`` by the host clock, the median of
+    ``repeats`` calls after one warm-up; each call ends in its read-back,
+    which waits for the card."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return rows / statistics.median(times)
+
+
+def rel_l2_rows(got, want) -> float:
+    """The largest ||got_i - want_i||_2 / ||want_i||_2 over rows i."""
+    num = np.linalg.norm(got - want, axis=1)
+    den = np.maximum(np.linalg.norm(want, axis=1), 1e-30)
+    return float((num / den).max())
+
+
+def phase_vision_ops(torch, env, dev="cuda"):
+    """ImageTransformer's chain on VISION_OPS_ROWS images of 256 x 256 x 3
+    (numpy seed 0), on the card against the same stage on the CPU."""
+    from mmlspark_tpu_torch.ops.image_stages import ImageTransformer
+    from mmlspark_tpu_torch.core.schema import image_to_array
+    rng = np.random.default_rng(SEED)
+    x = rng.integers(0, 256, size=(VISION_OPS_ROWS, VISION_OPS_HW,
+                                   VISION_OPS_HW, 3), dtype=np.uint8)
+    df = image_frame(x)
+
+    def chain(device):
+        t = ImageTransformer(inputCol="image", outputCol="out", device=device)
+        for name, args in VISION_CHAIN:
+            t = getattr(t, name)(*args)
+        return t
+
+    card = chain(dev)
+    got = np.stack([image_to_array(r) for r in card.transform(df).col("out")])
+    t0 = time.perf_counter()
+    want = np.stack([image_to_array(r) for r in
+                     chain("cpu").transform(df).col("out")])
+    cpu_s = time.perf_counter() - t0
+    worst = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+    differ = float((got != want).mean())
+    rows_s = host_rows_per_s(torch, lambda: card.transform(df),
+                             VISION_OPS_ROWS, dev)
+    emit({"phase": "vision_ops", "rows": VISION_OPS_ROWS,
+          "in_shape": list(x.shape[1:]), "out_shape": list(got.shape[1:]),
+          "chain": VISION_CHAIN, "max_count_diff_vs_cpu": worst,
+          "share_of_values_differing": differ, "rows_per_s": rows_s,
+          "cpu_rows_per_s": VISION_OPS_ROWS / cpu_s,
+          "gpu": env.gpu_name_and_power_limit()})
+    check(got.shape == want.shape, f"chain shapes {got.shape} {want.shape}")
+    check(worst <= TOL_VISION_COUNTS,
+          f"the image chain on the card differs from the CPU's by {worst} "
+          f"counts")
+
+
+def phase_vision_serve(torch, env, dev="cuda"):
+    """(a) the zoo's ResNet20_shapes10 through ModelDownloader and
+    TorchModel on shapes10's held-out images; (b) ImageFeaturizer over a
+    full-width ResNet-50 imported from a torchvision-layout checkpoint;
+    (c) the BiLSTM tagger. Each against the CPU."""
+    import os
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch import DataFrame, TorchModel
+    from mmlspark_tpu_torch.models.downloader import ModelDownloader
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.import_weights import import_resnet50
+    from mmlspark_tpu_torch.models.trainer import init_params
+    from mmlspark_tpu_torch.testing.datagen import (make_shapes10,
+                                                    make_torchvision_state)
+    out = {"phase": "vision_serve", "gpu": env.gpu_name_and_power_limit()}
+
+    # (a) the zoo scorer: a copy of zoo/ as the local repository
+    with tempfile.TemporaryDirectory() as tmp:
+        repo = os.path.join(tmp, "zoo")
+        shutil.copytree("zoo", repo)
+        schema = ModelDownloader(repo).downloadByName("ResNet20", "shapes10")
+        model = TorchModel(inputCol="image", device=dev).setModelSchema(
+            schema)
+        x, y = make_shapes10(ZOO_EVAL_ROWS, seed=8)
+        df = image_frame(x)
+        scores = np.stack(model.transform(df).col("scores"))
+        acc = float((scores.argmax(1) == y).mean())
+        out["zoo_resnet20_shapes10"] = {
+            "rows": ZOO_EVAL_ROWS, "sha256": schema.hash,
+            "config": model.getModelConfig(), "accuracy": acc,
+            "rows_per_s": host_rows_per_s(torch, lambda: model.transform(df),
+                                          ZOO_EVAL_ROWS, dev)}
+    check(acc >= TOL_ZOO_ACCURACY,
+          f"zoo ResNet20_shapes10 scored {acc} on shapes10's held-out rows")
+
+    # (b) ResNet-50 features: bf16 on the card, f32 on the CPU
+    t0 = time.perf_counter()
+    cfg, sd = import_resnet50(make_torchvision_state(),
+                              preprocess="imagenet_uint8")
+    import_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 4)
+    x = rng.integers(0, 256, size=(FEAT_ROWS, FEAT_HW, FEAT_HW, 3),
+                     dtype=np.uint8)
+    df = image_frame(x)
+
+    def featurizer(dtype, device):
+        return ImageFeaturizer(inputCol="image", cutOutputLayers=1,
+                               device=device).setModel(TorchModel(
+                                   modelConfig=dict(cfg, dtype=dtype),
+                                   modelParams=sd))
+
+    card = featurizer("bfloat16", dev)
+    feats = np.stack(card.transform(df).col("features"))
+    cpu = featurizer("float32", "cpu")
+    ref = np.stack(cpu.transform(DataFrame(
+        {"image": df.col("image")[:FEAT_CPU_ROWS]})).col("features"))
+    feat_err = rel_l2_rows(feats[:FEAT_CPU_ROWS], ref)
+    out["resnet50_featurizer"] = {
+        "rows": FEAT_ROWS, "in_hw": FEAT_HW, "net_hw": cfg["height"],
+        "feature_dim": int(feats.shape[1]), "cpu_rows": FEAT_CPU_ROWS,
+        "max_row_rel_l2_vs_cpu_f32": feat_err, "import_s": import_s,
+        "finite": bool(np.isfinite(feats).all()),
+        "rows_per_s": host_rows_per_s(torch, lambda: card.transform(df),
+                                      FEAT_ROWS, dev)}
+    check(feats.shape == (FEAT_ROWS, cfg["widths"][-1])
+          and bool(np.isfinite(feats).all()),
+          f"ResNet-50 features: shape {feats.shape}, finite "
+          f"{bool(np.isfinite(feats).all())}")
+    check(feat_err <= TOL_VISION_L2,
+          f"ResNet-50 features on the card are {feat_err} (relative L2) "
+          f"from the CPU's")
+
+    # (c) the BiLSTM tagger at its default config
+    bcfg = {"type": "bilstm"}
+    params = init_params(bcfg, SEED)
+    tokens = rng.integers(0, 10000, size=(BILSTM_ROWS, BILSTM_SEQ),
+                          dtype=np.int32)
+    tdf = DataFrame({"tokens": tokens})
+
+    def tagger(dtype, device):
+        return TorchModel(inputCol="tokens", modelConfig=dict(bcfg,
+                                                              dtype=dtype),
+                          modelParams=params, device=device)
+
+    bcard = tagger("bfloat16", dev)
+    logits = np.stack(bcard.transform(tdf).col("scores"))
+    blogits = np.stack(tagger("float32", "cpu").transform(tdf).col("scores"))
+    shape = logits.shape
+    lstm_err = rel_l2_rows(logits.reshape(-1, shape[-1]),
+                           blogits.reshape(-1, shape[-1]))
+    out["bilstm"] = {"rows": BILSTM_ROWS, "seq": BILSTM_SEQ,
+                     "max_row_rel_l2_vs_cpu_f32": lstm_err,
+                     "lstm_dtype": "float32",
+                     "bf16_cudnn_lstm": bf16_lstm_probe(torch, dev),
+                     "rows_per_s": host_rows_per_s(
+                         torch, lambda: bcard.transform(tdf), BILSTM_ROWS,
+                         dev)}
+    emit(out)
+    check(shape == (BILSTM_ROWS, BILSTM_SEQ, 8), f"BiLSTM logits {shape}")
+    check(lstm_err <= TOL_VISION_L2,
+          f"BiLSTM logits on the card are {lstm_err} (relative L2) from "
+          f"the CPU's")
+
+
+def bf16_lstm_probe(torch, dev) -> dict:
+    """Whether torch's LSTM takes bfloat16 on this device (the port's runs
+    in float32 either way): one small bidirectional call, and its distance
+    from the same call in float32."""
+    lstm = torch.nn.LSTM(16, 16, batch_first=True, bidirectional=True,
+                         device=dev)
+    x = torch.randn(2, 8, 16, device=dev)
+    ref = lstm(x)[0]
+    try:
+        got = lstm.to(torch.bfloat16)(x.to(torch.bfloat16))[0]
+    except RuntimeError as e:               # a probe, not a code path
+        return {"runs": False, "error": str(e)[:200]}
+    return {"runs": True,
+            "max_abs_diff_vs_f32": (got.float() - ref).abs().max().item()}
+
+
+def image_step_grads(torch, cfg, x, y, device, dtype) -> dict:
+    """One step's gradients of ``cfg`` (the fit's init, seed SEED) at
+    ``dtype`` on ``device``, as CPU float32 tensors."""
+    from mmlspark_tpu_torch.models import precision as prec
+    from mmlspark_tpu_torch.models import trainer
+    from mmlspark_tpu_torch.models.modules import build_model, sized_for
+    from mmlspark_tpu_torch.models.torch_model import full_precision_matmuls
+    c = sized_for(dict(cfg, dtype=dtype), x.shape)
+    params = {k: v.to(device) for k, v in
+              trainer.init_params(c, SEED).items()}
+    with torch.device("meta"):
+        module = build_model(c)
+    loss_fn = trainer.make_loss("cross_entropy", per_example=True)
+    xb = torch.from_numpy(x).to(device)
+    yb = torch.from_numpy(y.astype(np.int32)).to(device)
+    wb = torch.ones(len(x), device=device)
+    with full_precision_matmuls(dtype == "float32"):
+        _, grads = prec.value_and_grad(
+            trainer._make_loss_compute(module, loss_fn), params, xb, yb, wb)
+    return {k: g.float().cpu() for k, g in grads.items()}
+
+
+def grad_l2_errors(got: dict, want: dict) -> dict:
+    return {k: float((got[k] - want[k]).norm()
+                     / want[k].norm().clamp_min(1e-30)) for k in want}
+
+
+def image_step_profile(torch, cfg, x, y, dev, lr=BENCH_LR) -> dict:
+    """device_breakdown of one optimizer step of ``cfg`` (the fit's init,
+    momentum, on the first batch) after one warm-up step."""
+    from mmlspark_tpu_torch.models import trainer
+    from mmlspark_tpu_torch.models.modules import build_model, sized_for
+    c = sized_for(cfg, x.shape)
+    with torch.device("meta"):
+        module = build_model(c)
+    params = {k: v.to(dev) for k, v in trainer.init_params(c, SEED).items()}
+    tx = trainer.make_optimizer("momentum", lr, 0.9)
+    body = trainer._make_step_body(
+        module, tx, trainer.make_loss("cross_entropy", per_example=True))
+    xb = torch.from_numpy(x).to(dev)
+    yb = torch.from_numpy(y.astype(np.int32)).to(dev)
+    wb = torch.ones(len(x), device=dev)
+    state = [params, tx.init(params)]
+
+    def step():
+        state[0], state[1], _ = body(state[0], state[1], xb, yb, wb)
+
+    step()
+    return device_breakdown(torch, step, top=10)
+
+
+def phase_vision_train(torch, env, dev="cuda"):
+    """(a) bench.py's ResNet-20 training shape through TorchLearner; (b) the
+    zoo's shapes10 recipe, scored on the held-out rows, and one step's
+    gradients against the CPU's in float32."""
+    from mmlspark_tpu_torch import TorchLearner
+    from mmlspark_tpu_torch.testing.datagen import make_shapes10
+    cfg = {"type": "resnet", "num_classes": 10}
+    rng = np.random.default_rng(SEED)
+    x = rng.integers(0, 256, size=(BENCH_ROWS, 32, 32, 3)).astype(np.uint8)
+    y = rng.integers(0, 10, size=BENCH_ROWS).astype(np.int32)
+    df = image_frame(x)
+    df = df.withColumn("label", y)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bench = TorchLearner(featuresCol="image", modelConfig=cfg,
+                         batchSize=BENCH_BATCH, optimizer="momentum",
+                         learningRate=BENCH_LR, momentum=0.9,
+                         precision="bf16", epochs=BENCH_EPOCHS, seed=SEED,
+                         device=dev).fit(df)
+    fit_s = time.perf_counter() - t0
+    stats = bench._fit_stats
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
+               else None)
+    steps = stats["steps_per_epoch"]
+    step_ms = [s / steps * 1e3 for s in stats["epoch_seconds"]]
+    bench_step_ms = statistics.median(step_ms[1:])
+    profile = image_step_profile(torch, cfg, x[:BENCH_BATCH],
+                                 y[:BENCH_BATCH], dev)
+    out_a = {"config": cfg, "rows": BENCH_ROWS, "batch": BENCH_BATCH,
+             "epochs": BENCH_EPOCHS, "steps_per_epoch": steps,
+             "path": stats["path"], "optimizer": "momentum",
+             "learning_rate": BENCH_LR, "momentum": 0.9,
+             "precision": "bf16", "fit_s": fit_s,
+             "epoch_losses": stats["epoch_losses"],
+             "step_ms_by_epoch": step_ms, "step_ms": bench_step_ms,
+             "imgs_per_s": BENCH_BATCH / bench_step_ms * 1e3,
+             "peak_mem_gb": peak_gb, "profile_of_one_step": profile}
+    check(stats["path"] == "scan" and steps == BENCH_STEPS,
+          f"bench fit took the {stats['path']} path, {steps} steps an epoch")
+    check(all(np.isfinite(stats["epoch_losses"])),
+          f"bench fit losses {stats['epoch_losses']}")
+
+    # (b) the zoo's shapes10 recipe (tools/build_zoo.py:34-56, 94)
+    xs, ys = make_shapes10(RECIPE_ROWS, seed=7)
+    xv, yv = make_shapes10(ZOO_EVAL_ROWS, seed=8)
+    tdf = image_frame(xs).withColumn("label", ys)
+    t0 = time.perf_counter()
+    model = TorchLearner(featuresCol="image", modelConfig=cfg,
+                         batchSize=RECIPE_BATCH, optimizer="momentum",
+                         learningRate=RECIPE_LR, epochs=RECIPE_EPOCHS,
+                         seed=SEED, device=dev).fit(tdf)
+    recipe_s = time.perf_counter() - t0
+    scores = np.stack(model.transform(image_frame(xv)).col("scores"))
+    acc = float((scores.argmax(1) == yv).mean())
+    xb, yb = xs[:RECIPE_BATCH], ys[:RECIPE_BATCH]
+    recipe_profile = image_step_profile(torch, cfg, xb, yb, dev,
+                                        lr=RECIPE_LR)
+    cpu32 = image_step_grads(torch, cfg, xb, yb, "cpu", "float32")
+    errs = {p: grad_l2_errors(image_step_grads(torch, cfg, xb, yb, dev, p),
+                              cpu32)
+            for p in ("bfloat16", "float32")}
+    worst = {p: max(e, key=e.get) for p, e in errs.items()}
+    rstats = model._fit_stats
+    out_b = {"rows": RECIPE_ROWS, "epochs": RECIPE_EPOCHS,
+             "batch": RECIPE_BATCH, "learning_rate": RECIPE_LR,
+             "path": rstats["path"], "fit_s": recipe_s,
+             "epoch_losses": rstats["epoch_losses"],
+             "step_ms": statistics.median(rstats["epoch_seconds"][1:])
+             / rstats["steps_per_epoch"] * 1e3,
+             "heldout_rows": ZOO_EVAL_ROWS, "heldout_accuracy": acc,
+             "profile_of_one_step": recipe_profile,
+             "grad_check_rows": RECIPE_BATCH,
+             "grad_l2_rel_vs_cpu_f32": {
+                 p: {"worst": worst[p], "value": errs[p][worst[p]],
+                     "median": statistics.median(errs[p].values())}
+                 for p in errs},
+             "tol_grad": TOL_TRAIN_GRAD}
+    emit({"phase": "vision_train", "bench_shape": out_a,
+          "shapes10_recipe": out_b, "gpu": env.gpu_name_and_power_limit()})
+    check(acc >= TOL_RECIPE_ACCURACY,
+          f"the shapes10 recipe scored {acc} on the held-out rows")
+    check(errs["float32"][worst["float32"]] <= TOL_TRAIN_GRAD,
+          f"one f32 step's gradient of {worst['float32']} on the card is "
+          f"{errs['float32'][worst['float32']]} (relative L2) from the "
+          f"CPU's")
+    # bf16 gradients carry bf16's rounding (a GroupNorm scale's gradient
+    # is a sum of many terms that mostly cancel, read up to ~3.3e-2 from
+    # f32 on an H100): the gate holds their median, the worst is printed
+    bf16_median = statistics.median(errs["bfloat16"].values())
+    check(bf16_median <= TOL_TRAIN_GRAD,
+          f"one bf16 step's gradients on the card are a median "
+          f"{bf16_median} (relative L2) from the CPU's in f32")
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -2028,7 +2423,8 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 
 
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
-          "gbdt", "gbdt_leafwise", "gbdt_efb")
+          "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
+          "vision_train")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -2039,6 +2435,9 @@ PHASE_FNS = {
     "gbdt": lambda torch, env: phase_gbdt(torch, env),
     "gbdt_leafwise": lambda torch, env: phase_gbdt_leafwise(torch, env),
     "gbdt_efb": lambda torch, env: phase_gbdt_efb(torch, env),
+    "vision_ops": phase_vision_ops,
+    "vision_serve": phase_vision_serve,
+    "vision_train": phase_vision_train,
 }
 
 
@@ -2086,6 +2485,18 @@ def main(argv=None) -> int:
     gbdt = phase_gbdt(torch, env)
     leafwise = phase_gbdt_leafwise(torch, env)
     efb = phase_gbdt_efb(torch, env)
+    # the image paths run on cuDNN/cuBLAS and plain PyTorch: no kernel of
+    # the table may launch in them
+    reset_kernel_counts()
+    reset_gbdt_counts()
+    phase_vision_ops(torch, env)
+    phase_vision_serve(torch, env)
+    phase_vision_train(torch, env)
+    vision_launches = {**kernel_counts(), **gbdt_counts()}
+    emit({"phase": "vision_kernel_launches", "launches": vision_launches})
+    check(not any(vision_launches.values()),
+          f"the vision phases launched kernels of the table: "
+          f"{vision_launches}")
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"]}

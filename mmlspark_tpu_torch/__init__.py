@@ -21,6 +21,15 @@ v1 fused histogram and the quantized level-wise and leaf-wise ensemble
 predicts are hand-written CUDA kernels (``ops/csrc/gbdt_histogram.cu``,
 ``ops/csrc/gbdt_predict.cu``).
 
+The image path: every model family of ``build_model`` (MLP, ConvNet,
+ResNet, the ResNet-50 class, BiLSTM, transformer); ``ops.image_stages``
+(``ImageTransformer``, ``UnrollImage``, ``ImageSetAugmenter``) over
+image-row columns; ``TorchLearner`` on uint8 image columns; the model
+zoo's packed artifacts through ``models.downloader.ModelDownloader``;
+``models.import_weights.import_resnet50`` and
+``models.image_featurizer.ImageFeaturizer``. It runs on cuDNN/cuBLAS
+through torch.
+
 Importing the package stays light: torch loads on first use of
 ``TorchModel``, ``TorchLearner``, ``build_model`` or a LightGBM stage.
 """

@@ -15,6 +15,21 @@ def accelerator_count() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
+def resolve_device(name: str, who: str):
+    """``name`` ("cuda", "cuda:N" or "cpu") as a torch device for the stage
+    ``who``. Asking for CUDA where torch sees none raises: nothing falls
+    back to the CPU."""
+    import torch
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} device={name!r} but torch sees no CUDA device; set "
+            f"device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who} runs on cuda or cpu, not {dev}")
+    return dev
+
+
 def gpu_name_and_power_limit() -> Optional[str]:
     """The card's name and power limit exactly as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints

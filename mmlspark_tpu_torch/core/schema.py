@@ -8,7 +8,8 @@
 * categorical levels ride in column metadata under ``MML_TAG`` (reference:
   Categoricals.scala:16-60);
 * score columns are tagged by role, so evaluators find scores and labels
-  without their names (reference: SparkSchema.scala:13-80).
+  without their names (reference: SparkSchema.scala:13-80);
+* ``findUnusedColumnName`` (reference: DatasetExtensions.scala).
 """
 
 from __future__ import annotations
@@ -22,6 +23,16 @@ from .dataframe import DataFrame
 MML_TAG = "mml"
 
 IMAGE_FIELDS = ("path", "height", "width", "type", "bytes")
+
+
+def make_image_row(path: str, height: int, width: int, channels: int,
+                   data: bytes | np.ndarray) -> dict:
+    """One image as a struct-row; `type` is the channel count, `bytes` is the
+    HWC uint8 buffer (matching the reference's OpenCV byte layout)."""
+    if isinstance(data, np.ndarray):
+        data = np.ascontiguousarray(data, dtype=np.uint8).tobytes()
+    return {"path": path, "height": int(height), "width": int(width),
+            "type": int(channels), "bytes": data}
 
 
 def image_to_array(row: dict) -> np.ndarray:
@@ -38,6 +49,12 @@ def is_image_column(df: DataFrame, name: str) -> bool:
     if col.dtype.kind == "O" and len(col) and isinstance(col[0], dict):
         return set(IMAGE_FIELDS).issubset(col[0].keys())
     return False
+
+
+def tag_image_column(df: DataFrame, name: str) -> DataFrame:
+    md = df.metadata(name)
+    md.setdefault(MML_TAG, {})["image"] = True
+    return df.withMetadata(name, md)
 
 
 class CategoricalUtilities:
@@ -120,3 +137,13 @@ class SparkSchema:
         return SparkSchema.setColumnKind(
             df, column, SchemaConstants.ScoredProbabilitiesColumnKind,
             model_kind)
+
+
+def findUnusedColumnName(prefix: str, df: DataFrame) -> str:
+    """reference: DatasetExtensions.findUnusedColumnName."""
+    name, i = prefix, 0
+    existing = set(df.columns)
+    while name in existing:
+        i += 1
+        name = f"{prefix}_{i}"
+    return name

@@ -19,12 +19,28 @@ epsilon 1e-6, GELU is the tanh approximation, and mean-pooling sums in f32.
 ``remat=True`` recomputes each block's forward during the backward
 (``torch.utils.checkpoint``, non-reentrant), as flax's ``nn.remat`` does.
 
-The other families (MLP, ConvNet, ResNet, BiLSTM) are ROADMAP.md Queue 1
-item 2; ``build_model`` raises NotImplementedError for them.
+The image families (MLP, ConvNet, ResNet) take NHWC input, as the JAX
+package does, cast it to the compute dtype (uint8 images included: no
+/255) and run on the NCHW view ``x.permute(0, 3, 1, 2)``, whose strides
+are channels-last, so cuDNN takes its NHWC convolutions as they are. Every
+tapped activation comes back NHWC. Convolutions pad as flax does: "SAME"
+(``Conv2d``, ``_same_pads``) puts the odd pixel of padding at the high
+end, so a stride-2 conv of an even input pads (0, 1), which is padded by
+hand before an unpadded conv; ``padding="torch"`` pads k//2 each side, as
+an imported torchvision net needs. GroupNorm is flax's one group over
+(H, W, C) with epsilon 1e-6 and f32 statistics. The BiLSTM's recurrence
+runs in float32 on every device (``BiLSTMTagger``).
+
+Sizes that flax infers from the first input (an MLP's input width, a
+ConvNet's flattened width, the input channels) are config keys here
+(``input_dim``, ``height``/``width``, ``channels_in``, with the JAX
+``example_input``'s defaults); ``sized_for`` fills them in from the data's
+shape, as ``TorchModel`` and ``TorchLearner`` do.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -109,6 +125,382 @@ class Embed(nn.Embedding):
 
     def forward(self, ids):
         return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
+# ------------------------------------------------------------ image layers
+
+def _same_pads(n: int, k: int, stride: int) -> tuple:
+    """XLA's "SAME" padding of one spatial dim: out = ceil(n / stride), and
+    the total padding's odd pixel goes to the high end."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(padding: str, n: int, k: int, stride: int) -> tuple:
+    if padding == "same":
+        return _same_pads(n, k, stride)
+    if padding == "torch":
+        return k // 2, k // 2
+    return 0, 0                                          # "valid"
+
+
+def _nhwc(x):
+    """An NCHW activation as the NHWC float32 tensor a tap returns."""
+    return x.permute(0, 2, 3, 1).float().contiguous()
+
+
+def _tap_out(x):
+    return _nhwc(x) if x.dim() == 4 else x.float()
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` on the NCHW (channels-last) view: a float32 OIHW
+    weight (flax's HWIO, transposed) and optional bias cast to the compute
+    dtype at each call. ``padding``: "same" (flax's default, XLA's SAME),
+    "torch" (k//2 each side) or "valid". Symmetric padding is the conv's
+    own; asymmetric padding is added by ``F.pad`` first."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
+                 padding: str = "same", bias: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, k, k))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
+        self.k, self.stride, self.padding = k, stride, padding
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        ph = _pads(self.padding, x.shape[2], self.k, self.stride)
+        pw = _pads(self.padding, x.shape[3], self.k, self.stride)
+        x = x.to(dt)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            pad = (ph[0], pw[0])
+        else:
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            pad = 0
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x, self.weight.to(dt), b, self.stride, pad)
+
+
+def _max_pool(x, k: int, stride: int, padding: str):
+    """flax ``nn.max_pool`` on the NCHW view; padding pads with -inf."""
+    ph = _pads(padding, x.shape[2], k, stride)
+    pw = _pads(padding, x.shape[3], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.max_pool2d(x, k, stride, (ph[0], pw[0]))
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, k, stride)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=None, group_size=C)``: one group over
+    (H, W, C) of each sample, statistics, scale and bias in f32, epsilon
+    1e-6 (torch's default is 1e-5), output cast to the compute dtype.
+
+    One group over every element of a sample is a layer norm over the
+    sample's (H, W, C), so it runs as ``F.layer_norm`` on the NHWC view
+    (contiguous for a channels-last activation) with the per-channel
+    affine broadcast over (H, W): the activation stays channels-last for
+    the next conv (``F.group_norm`` returns NCHW-contiguous tensors, which
+    cuDNN transposes back around every conv)."""
+
+    def __init__(self, c: int, dtype: torch.dtype, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x):
+        _, c, h, w = x.shape
+        y = F.layer_norm(x.permute(0, 2, 3, 1).float(), (h, w, c),
+                         self.weight.float().expand(h, w, c),
+                         self.bias.float().expand(h, w, c), self.eps)
+        return y.to(self.dtype).permute(0, 3, 1, 2)
+
+
+class FrozenAffine(nn.Module):
+    """The JAX package's ``_FrozenAffine``: BatchNorm in eval mode as a
+    per-channel ``x * weight + bias`` (flax's scale and bias) in the compute
+    dtype; ``models.import_weights`` folds running statistics into it."""
+
+    def __init__(self, c: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.dtype = dtype
+
+    def forward(self, x):
+        shape = (1, -1, 1, 1)
+        return (x * self.weight.to(self.dtype).view(shape)
+                + self.bias.to(self.dtype).view(shape))
+
+
+def _norm_layer(norm: str, c: int, dtype):
+    return FrozenAffine(c, dtype) if norm == "frozen" else GroupNorm(c, dtype)
+
+
+class MLPNet(nn.Module):
+    """Multilayer perceptron (the JAX package's ``MLPNet``): the input,
+    flattened in its own order (NHWC for images), through ReLU Dense
+    layers to a Dense head."""
+
+    def __init__(self, hidden=(128, 64), num_classes: int = 2,
+                 input_dim: int = 16, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dims = [input_dim, *hidden]
+        self.dtype = dtype
+        self.hidden = nn.ModuleList(Dense(a, b, dtype)
+                                    for a, b in zip(dims, dims[1:]))
+        self.head = Dense(dims[-1], num_classes, dtype)
+
+    def layer_names(self):
+        return [f"dense{i}" for i in range(len(self.hidden))] + ["logits"]
+
+    def forward(self, x, output_layer: Optional[str] = None):
+        tap = _LayerTap(output_layer)
+        x = x.to(self.dtype).reshape(x.shape[0], -1)
+        for i, layer in enumerate(self.hidden):
+            x = tap.tap(f"dense{i}", F.relu(layer(x)))
+            if tap.done:
+                return tap.result.float()
+        return tap.tap("logits", self.head(x)).float()
+
+
+class ConvNet(nn.Module):
+    """CIFAR-style ConvNet (the JAX package's ``ConvNet``): 3x3 SAME convs
+    with bias and ReLU, a VALID 2x2 max-pool after every second one, the
+    NHWC flattening, a ReLU Dense and a Dense head. The Dense's input width
+    follows from ``height``, ``width`` and the pools (flax infers it)."""
+
+    def __init__(self, channels=(32, 32, 64, 64), dense: int = 512,
+                 num_classes: int = 10, height: int = 32, width: int = 32,
+                 channels_in: int = 3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dims = [channels_in, *channels]
+        self.dtype = dtype
+        self.convs = nn.ModuleList(
+            Conv2d(a, b, 3, bias=True, dtype=dtype)
+            for a, b in zip(dims, dims[1:]))
+        pools = len(channels) // 2
+        h, w = height, width
+        for _ in range(pools):
+            h, w = h // 2, w // 2
+        self.dense = Dense(h * w * dims[-1], dense, dtype)
+        self.head = Dense(dense, num_classes, dtype)
+
+    def layer_names(self):
+        names = [f"conv{i}" for i in range(len(self.convs))]
+        return names + ["dense", "logits"]
+
+    def forward(self, x, output_layer: Optional[str] = None):
+        tap = _LayerTap(output_layer)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        for i, conv in enumerate(self.convs):
+            x = tap.tap(f"conv{i}", F.relu(conv(x)))
+            if tap.done:
+                return _tap_out(tap.result)
+            if i % 2 == 1:
+                x = F.max_pool2d(x, 2, 2)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC order
+        x = tap.tap("dense", F.relu(self.dense(x)))
+        if tap.done:
+            return tap.result.float()
+        return tap.tap("logits", self.head(x)).float()
+
+
+class _BasicBlock(nn.Module):
+    """3x3 -> 3x3 residual block. A 1x1 projection (and, frozen, its
+    affine) joins when the shape changes; flax decides that from the
+    traced shapes, the port from the channels and stride."""
+
+    def __init__(self, c_in: int, filters: int, stride: int, dtype,
+                 norm: str = "group", padding: str = "same"):
+        super().__init__()
+        self.conv1 = Conv2d(c_in, filters, 3, stride, padding, dtype=dtype)
+        self.norm1 = _norm_layer(norm, filters, dtype)
+        self.conv2 = Conv2d(filters, filters, 3, 1, padding, dtype=dtype)
+        self.norm2 = _norm_layer(norm, filters, dtype)
+        self.proj, self.proj_norm = _projection(c_in, filters, stride, dtype,
+                                                norm)
+
+    def forward(self, x):
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = self.norm2(self.conv2(y))
+        return F.relu(_shortcut(self, x) + y)
+
+
+class _BottleneckBlock(nn.Module):
+    """1x1 reduce -> 3x3 -> 1x1 expand (ResNet-50-family block);
+    ``filters`` is the expanded width."""
+
+    def __init__(self, c_in: int, filters: int, stride: int, dtype,
+                 norm: str = "group", padding: str = "same"):
+        super().__init__()
+        inner = filters // 4
+        self.conv1 = Conv2d(c_in, inner, 1, dtype=dtype)
+        self.norm1 = _norm_layer(norm, inner, dtype)
+        self.conv2 = Conv2d(inner, inner, 3, stride, padding, dtype=dtype)
+        self.norm2 = _norm_layer(norm, inner, dtype)
+        self.conv3 = Conv2d(inner, filters, 1, dtype=dtype)
+        self.norm3 = _norm_layer(norm, filters, dtype)
+        self.proj, self.proj_norm = _projection(c_in, filters, stride, dtype,
+                                                norm)
+
+    def forward(self, x):
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        y = self.norm3(self.conv3(y))
+        return F.relu(_shortcut(self, x) + y)
+
+
+def _projection(c_in, filters, stride, dtype, norm):
+    if c_in == filters and stride == 1:
+        return None, None
+    # torch normalises the projection too; the group-norm nets do not
+    return (Conv2d(c_in, filters, 1, stride, dtype=dtype),
+            FrozenAffine(filters, dtype) if norm == "frozen" else None)
+
+
+def _shortcut(block, x):
+    if block.proj is None:
+        return x
+    x = block.proj(x)
+    return x if block.proj_norm is None else block.proj_norm(x)
+
+
+class ResNet(nn.Module):
+    """ResNet family (the JAX package's ``ResNet``): the CIFAR ResNet by
+    default (depth 6n+2), or with ``block="bottleneck"``, per-stage depths
+    and the ImageNet stem (7x7/2 conv, 3x3/2 max-pool) the ResNet-50 class.
+    ``norm`` "group" (trains) or "frozen" (an imported eval-mode net);
+    ``padding`` "same" or "torch"; ``input_norm`` a per-channel affine of
+    the raw input ahead of the stem, where imported nets fold their
+    preprocessing."""
+
+    def __init__(self, blocks_per_stage=3, widths=(16, 32, 64),
+                 num_classes: int = 10, block: str = "basic",
+                 stem: str = "cifar", dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "group", padding: str = "same",
+                 input_norm: bool = False, channels_in: int = 3):
+        super().__init__()
+        if block not in ("basic", "bottleneck"):
+            raise ValueError(f"block must be basic|bottleneck, got {block!r}")
+        if stem not in ("cifar", "imagenet"):
+            raise ValueError(f"stem must be cifar|imagenet, got {stem!r}")
+        if norm not in ("group", "frozen"):
+            raise ValueError(f"norm must be group|frozen, got {norm!r}")
+        if padding not in ("same", "torch"):
+            raise ValueError(f"padding must be same|torch, got {padding!r}")
+        self.widths = list(widths)
+        self.depths = _stage_depths(blocks_per_stage, self.widths)
+        self.stem_kind, self.padding, self.dtype = stem, padding, dtype
+        Block = _BasicBlock if block == "basic" else _BottleneckBlock
+        stem_width = widths[0] // 4 if block == "bottleneck" else widths[0]
+        self.input_norm = (FrozenAffine(channels_in, dtype) if input_norm
+                           else None)
+        self.stem = (Conv2d(channels_in, stem_width, 7, 2, padding,
+                            dtype=dtype) if stem == "imagenet"
+                     else Conv2d(channels_in, stem_width, 3, 1, padding,
+                                 dtype=dtype))
+        self.stem_norm = _norm_layer(norm, stem_width, dtype)
+        blocks, c = [], stem_width
+        for s, (width, depth) in enumerate(zip(self.widths, self.depths)):
+            for b in range(depth):
+                blocks.append(Block(c, width, 2 if (s > 0 and b == 0) else 1,
+                                    dtype, norm, padding))
+                c = width
+        self.blocks = nn.ModuleList(blocks)
+        self.head = Dense(c, num_classes, dtype)
+
+    def layer_names(self):
+        names = ["stem"]
+        for s, depth in enumerate(self.depths):
+            names += [f"stage{s}_block{b}" for b in range(depth)]
+        return names + ["pool", "logits"]
+
+    def forward(self, x, output_layer: Optional[str] = None):
+        tap = _LayerTap(output_layer)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)     # channels-last NCHW
+        if self.input_norm is not None:
+            x = self.input_norm(x)
+        x = F.relu(self.stem_norm(self.stem(x)))
+        if self.stem_kind == "imagenet":
+            x = _max_pool(x, 3, 2, self.padding)
+        x = tap.tap("stem", x)
+        if tap.done:
+            return _tap_out(tap.result)
+        for name, blk in zip(self.layer_names()[1:-2], self.blocks):
+            x = tap.tap(name, blk(x))
+            if tap.done:
+                return _tap_out(tap.result)
+        # f32 sum, as jnp.mean of bf16
+        x = tap.tap("pool", x.float().mean(dim=(2, 3)).to(self.dtype))
+        if tap.done:
+            return tap.result.float()
+        return tap.tap("logits", self.head(x)).float()
+
+
+def _stage_depths(blocks_per_stage, widths) -> list:
+    if isinstance(blocks_per_stage, int):
+        return [blocks_per_stage] * len(widths)
+    depths = list(blocks_per_stage)
+    if len(depths) != len(widths):
+        raise ValueError(
+            f"blocks_per_stage has {len(depths)} stages but widths has "
+            f"{len(widths)} — set both (e.g. resnet50: "
+            f"blocks_per_stage=[3,4,6,3], widths=[256,512,1024,2048])")
+    return depths
+
+
+class _LSTM(nn.LSTM):
+    """``nn.LSTM`` that reads its weights from its parameter slots at each
+    call, so weights bound in place (the trainer's ``_bind``) are the ones
+    used."""
+
+    def forward(self, x):
+        self._flat_weights = [self._parameters[n]
+                              for n in self._flat_weights_names]
+        return super().forward(x)
+
+
+class BiLSTMTagger(nn.Module):
+    """Bidirectional LSTM sequence tagger (the JAX package's
+    ``BiLSTMTagger``): int token ids (B, T) -> per-token logits
+    (B, T, classes).
+
+    flax's ``LSTMCell`` has unbiased input kernels (ii, if, ig, io) and
+    biased hidden ones (hi, hf, hg, ho); torch's LSTM packs the gates
+    (i, f, g, o) and has two biases, so the hidden biases go in
+    ``bias_hh`` and ``bias_ih`` stays zero. The recurrence runs in float32
+    whatever the compute dtype (flax keeps the carry in float32 too; its
+    gate products are in the compute dtype): the embedding and the head
+    run in the compute dtype."""
+
+    def __init__(self, vocab_size: int = 10000, embed_dim: int = 128,
+                 hidden: int = 128, num_classes: int = 8,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.embed = Embed(vocab_size, embed_dim, dtype)
+        self.lstm = _LSTM(embed_dim, hidden, batch_first=True,
+                          bidirectional=True, dtype=torch.float32)
+        self.head = Dense(2 * hidden, num_classes, dtype)
+
+    def layer_names(self):
+        return ["embed", "bilstm", "logits"]
+
+    def forward(self, tokens, output_layer: Optional[str] = None):
+        tap = _LayerTap(output_layer)
+        x = tap.tap("embed", self.embed(tokens))
+        if tap.done:
+            return tap.result.float()
+        x = tap.tap("bilstm", self.lstm(x.float())[0])
+        if tap.done:
+            return tap.result.float()
+        return tap.tap("logits", self.head(x)).float()
 
 
 class _EncoderBlock(nn.Module):
@@ -252,19 +644,48 @@ def _build_transformer(cfg: dict) -> TransformerEncoder:
         dtype=resolve_dtype(cfg.get("dtype")))
 
 
-def _not_ported(family: str):
-    def build(cfg):
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 2); the port serves 'transformer'")
-    return build
+def _dtype(cfg):
+    return resolve_dtype(cfg.get("dtype"))
 
 
 MODEL_BUILDERS: dict[str, Callable[[dict], nn.Module]] = {
+    "mlp": lambda cfg: MLPNet(
+        hidden=tuple(cfg.get("hidden", (128, 64))),
+        num_classes=cfg.get("num_classes", 2),
+        input_dim=cfg.get("input_dim", 16), dtype=_dtype(cfg)),
+    "convnet": lambda cfg: ConvNet(
+        channels=tuple(cfg.get("channels", (32, 32, 64, 64))),
+        dense=cfg.get("dense", 512),
+        num_classes=cfg.get("num_classes", 10),
+        height=cfg.get("height", 32), width=cfg.get("width", 32),
+        channels_in=cfg.get("channels_in", 3), dtype=_dtype(cfg)),
+    "resnet": lambda cfg: ResNet(
+        blocks_per_stage=cfg.get("blocks_per_stage", 3),
+        widths=tuple(cfg.get("widths", (16, 32, 64))),
+        num_classes=cfg.get("num_classes", 10),
+        block=cfg.get("block", "basic"), stem=cfg.get("stem", "cifar"),
+        dtype=_dtype(cfg), norm=cfg.get("norm", "group"),
+        padding=cfg.get("padding", "same"),
+        input_norm=cfg.get("input_norm", False),
+        channels_in=cfg.get("channels_in", 3)),
+    # the reference ImageFeaturizer's headline model (ResNet-50, ImageNet)
+    "resnet50": lambda cfg: ResNet(
+        blocks_per_stage=tuple(cfg.get("blocks_per_stage", (3, 4, 6, 3))),
+        widths=tuple(cfg.get("widths", (256, 512, 1024, 2048))),
+        num_classes=cfg.get("num_classes", 1000),
+        block="bottleneck", stem="imagenet", dtype=_dtype(cfg),
+        norm=cfg.get("norm", "group"), padding=cfg.get("padding", "same"),
+        input_norm=cfg.get("input_norm", False),
+        channels_in=cfg.get("channels_in", 3)),
+    "bilstm": lambda cfg: BiLSTMTagger(
+        vocab_size=cfg.get("vocab_size", 10000),
+        embed_dim=cfg.get("embed_dim", 128),
+        hidden=cfg.get("hidden", 128),
+        num_classes=cfg.get("num_classes", 8), dtype=_dtype(cfg)),
     "transformer": _build_transformer,
-    **{f: _not_ported(f)
-       for f in ("mlp", "convnet", "resnet", "resnet50", "bilstm")},
 }
+
+IMAGE_MODELS = ("convnet", "resnet", "resnet50")
 
 
 def build_model(config: dict) -> nn.Module:
@@ -278,12 +699,36 @@ def build_model(config: dict) -> nn.Module:
     return MODEL_BUILDERS[mtype](cfg)
 
 
+def sized_for(config: dict, input_shape) -> dict:
+    """``config`` with the sizes flax infers from the first input taken
+    from ``input_shape`` (batch first): an MLP's ``input_dim``, a ConvNet's
+    ``height``, ``width`` and ``channels_in``, a ResNet's ``channels_in``.
+    Token models and empty shapes leave it as it is."""
+    cfg = dict(config)
+    shape = tuple(input_shape)
+    mtype = cfg.get("type")
+    if len(shape) < 2 or mtype in TOKEN_MODELS:
+        return cfg
+    if mtype == "mlp":
+        cfg["input_dim"] = math.prod(shape[1:])
+    elif mtype in IMAGE_MODELS and len(shape) == 4:
+        if mtype == "convnet":
+            cfg["height"], cfg["width"] = shape[1], shape[2]
+        cfg["channels_in"] = shape[3]
+    return cfg
+
+
 def example_input(config: dict, batch: int = 2) -> torch.Tensor:
     """A tiny correctly-shaped input for shape checks."""
     mtype = config["type"]
+    if mtype == "mlp":
+        return torch.zeros((batch, config.get("input_dim", 16)))
+    if mtype in IMAGE_MODELS:
+        default_hw = 64 if mtype == "resnet50" else 32
+        return torch.zeros((batch, config.get("height", default_hw),
+                            config.get("width", default_hw),
+                            config.get("channels_in", 3)))
     if mtype in TOKEN_MODELS:
         return torch.zeros((batch, config.get("seq_len", 16)),
                            dtype=torch.long)
-    if mtype in MODEL_BUILDERS:
-        MODEL_BUILDERS[mtype](config)      # raises: family not ported
     raise KeyError(mtype)

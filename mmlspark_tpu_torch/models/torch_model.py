@@ -8,15 +8,19 @@ by layer name (reference :98-108) is the ``outputLayer`` param.
 
 It runs on ``device`` ("cuda" by default). Asked for CUDA where there is
 none, it raises: it never continues on the CPU. The tests ask for "cpu".
+Image columns cross to the device as NHWC uint8 and the model casts them.
+A float32 model config scores with TF32 off (full float32 products, as
+``TorchLearner(precision="f32")`` trains); bf16 configs run on the tensor
+cores.
 
 Not ported yet, and raising when asked for: ``tensorParallel > 1`` (the
-``parallel/`` slice), the packed ``.model`` zip form of
-``setModelLocation``, ``exportStableHLO`` and ``capture`` (the capture
+``parallel/`` slice), ``exportStableHLO`` and ``capture`` (the capture
 slice), and the multi-host scoring path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Optional
@@ -26,6 +30,7 @@ import torch
 
 from .. import telemetry
 from ..core.dataframe import DataFrame
+from ..core.env import resolve_device
 from ..core.params import (ComplexParam, DictParam, IntParam, ListParam,
                            StringParam)
 from ..core.pipeline import Transformer
@@ -99,6 +104,24 @@ def _token_matrix(df: DataFrame, col_name: str) -> np.ndarray:
     return mat
 
 
+@contextlib.contextmanager
+def full_precision_matmuls(on: bool):
+    """Full float32 products while ``on``: TF32 off for cuBLAS and cuDNN
+    (PyTorch lets cuDNN's convolutions take TF32 by default)."""
+    if not on:
+        yield
+        return
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
 class TorchModel(Transformer):
     """Batch inference on one device.
 
@@ -131,26 +154,32 @@ class TorchModel(Transformer):
 
     # ---- model loading ----
     def setModelLocation(self, path: str) -> "TorchModel":
-        """Load a saved model directory ({config.json, params.npz}, as
-        :meth:`saveModel` writes it)."""
+        """Load a saved model: a packed ``.model`` artifact (the zoo's and
+        ModelDownloader's form), or a directory holding ``config.json``
+        and either ``params.npz`` (a state_dict, as :meth:`saveModel`
+        writes it) or ``params.msgpack`` (a flax tree, as the JAX package
+        writes it)."""
+        from .downloader import read_flax_msgpack, unpack_model
         if os.path.isfile(path):
-            raise NotImplementedError(
-                "packed .model artifacts wait for the port of "
-                "models/downloader.py (ROADMAP.md Queue 1 item 8); pass a "
-                "saved model directory")
+            with open(path, "rb") as f:
+                config, params = unpack_model(f.read())
+            return self.setModelConfig(config).setModelParams(params)
         with open(os.path.join(path, "config.json")) as f:
             config = json.load(f)
         params_file = os.path.join(path, "params.npz")
-        if not os.path.exists(params_file):
-            raise NotImplementedError(
-                f"{path} holds no params.npz; flax msgpack params are read "
-                f"by the JAX package — carry them across with "
-                f"models.weights.from_flax_params")
-        with np.load(params_file, allow_pickle=False) as z:
-            params = {k: torch.from_numpy(z[k]) for k in z.files}
+        if os.path.exists(params_file):
+            with np.load(params_file, allow_pickle=False) as z:
+                params = {k: torch.from_numpy(z[k]) for k in z.files}
+        else:
+            with open(os.path.join(path, "params.msgpack"), "rb") as f:
+                params = read_flax_msgpack(f.read())
         self.setModelConfig(config)
         self.setModelParams(params)
         return self
+
+    def setModelSchema(self, schema) -> "TorchModel":
+        """Load from a ModelDownloader ``ModelSchema`` (a local uri)."""
+        return self.setModelLocation(schema.uri)
 
     def saveModel(self, path: str):
         """Persist {config.json, params.npz}: the state_dict, float32."""
@@ -181,24 +210,17 @@ class TorchModel(Transformer):
 
     # ---- device state ----
     def _device(self) -> torch.device:
-        dev = torch.device(self.getDevice())
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"TorchModel device={self.getDevice()!r} but torch sees no "
-                f"CUDA device; set device='cpu' to score on the CPU")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"TorchModel runs on cuda or cpu, not {dev}")
-        return dev
+        return resolve_device(self.getDevice(), "TorchModel")
 
-    def _device_module(self, dev: torch.device):
-        """The module with its weights on ``dev``, uploaded ONCE per
-        (params, config, device): the serving loop calls transform per
-        request batch, and re-shipping every weight each time would
-        dominate request latency. Validity is object identity through
-        STRONG references, so a new params object can never alias a freed
-        one; updating weights means setModelParams (a new object)."""
+    def _device_module(self, dev: torch.device, cfg: dict):
+        """The module of ``cfg`` (the config sized for the input) with its
+        weights on ``dev``, uploaded ONCE per (params, config, device): the
+        serving loop calls transform per request batch, and re-shipping
+        every weight each time would dominate request latency. Validity is
+        object identity through STRONG references, so a new params object
+        can never alias a freed one; updating weights means setModelParams
+        (a new object)."""
         host = self.getModelParams()
-        cfg = self.getModelConfig()
         key = (json.dumps(cfg, sort_keys=True, default=str), str(dev))
         if (getattr(self, "_dev_params_src", None) is not host
                 or getattr(self, "_dev_module_key", None) != key):
@@ -244,7 +266,7 @@ class TorchModel(Transformer):
                 "(ROADMAP.md Queue 1 item 12)")
         dev = self._device()
         cfg = self.getModelConfig()
-        from .modules import TOKEN_MODELS
+        from .modules import TOKEN_MODELS, resolve_dtype, sized_for
         if cfg.get("type") in TOKEN_MODELS:
             x = _token_matrix(df, self.getInputCol())
             vocab = cfg.get("vocab_size", 10000)
@@ -256,11 +278,14 @@ class TorchModel(Transformer):
         else:
             x = _prep_input(df, self.getInputCol(),
                             tuple(self.getInputShape()))
-        module = self._device_module(dev)
+        # an empty column has no shape to size the module by: nothing runs
+        module = (self._device_module(dev, sized_for(cfg, x.shape))
+                  if len(x) else None)
         ol = self.getOutputLayer() or None
         bs = self.getMiniBatchSize()
         outs = []
-        with torch.inference_mode():
+        f32 = resolve_dtype(cfg.get("dtype")) == torch.float32
+        with torch.inference_mode(), full_precision_matmuls(f32):
             for lo in range(0, len(x), bs):
                 chunk = x[lo:lo + bs]
                 n_real = len(chunk)

@@ -37,7 +37,6 @@ sessions (``sloConfig``) and the device profiler (``profile``); also
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Callable, NamedTuple
 
@@ -45,13 +44,16 @@ import numpy as np
 import torch
 
 from ..core.dataframe import DataFrame
+from ..core.env import resolve_device
 from ..core.params import (BooleanParam, DictParam, FloatParam, IntParam,
                            ListParam, StringParam)
 from ..core.pipeline import Estimator
 from ..core.utils import get_logger
 from . import precision as prec
-from .modules import TOKEN_MODELS, Dense, Embed, LayerNorm, build_model
-from .torch_model import TorchModel, _prep_input, _token_matrix
+from .modules import (TOKEN_MODELS, Conv2d, Dense, Embed, FrozenAffine,
+                      GroupNorm, LayerNorm, build_model, sized_for)
+from .torch_model import (TorchModel, _prep_input, _token_matrix,
+                          full_precision_matmuls)
 
 log = get_logger("trainer")
 
@@ -229,14 +231,24 @@ def _make_mixed_step_body(module, tx, loss_fn, grad_clip: float = 0.0):
 _TRUNC_STD = 0.87962566103423978
 
 
+def _lecun_normal(shape, fan_in: int, gen) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated at +-2 sigma, std
+    sqrt(1/fan_in) / .8796."""
+    w = torch.empty(shape)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w * ((1.0 / fan_in) ** 0.5 / _TRUNC_STD)
+
+
 def init_params(cfg: dict, seed: int) -> dict:
     """A fresh state_dict (CPU float32) for ``cfg``, drawn from a
     ``torch.Generator`` seeded with ``seed`` with the distributions of the
-    flax initializers: Dense kernels lecun_normal (a normal truncated at
-    +-2 sigma, std sqrt(1/fan_in) / .8796), biases 0, embeddings
+    flax initializers: Dense and conv kernels lecun_normal (fan_in the
+    input width, times kh·kw for a conv), biases 0, embeddings
     variance_scaling(1, "fan_in", "normal", out_axis=0) (std
-    sqrt(1/d_model)), LayerNorm scale 1 and bias 0. The draws are not
-    flax's bits; the parity tests carry the JAX init across instead."""
+    sqrt(1/d_model)), LayerNorm, GroupNorm and frozen-affine scale 1 and
+    bias 0; an LSTM's input kernels lecun_normal, its recurrent kernels
+    orthogonal for each gate's (H, H) matrix, its biases 0. The draws are
+    not flax's bits; the parity tests carry the JAX init across instead."""
     with torch.device("meta"):
         module = build_model(cfg)
     gen = torch.Generator().manual_seed(seed)
@@ -245,20 +257,35 @@ def init_params(cfg: dict, seed: int) -> dict:
         pre = f"{mname}." if mname else ""
         if isinstance(mod, Dense):
             d_out, d_in = mod.weight.shape
-            w = torch.empty((d_out, d_in))
-            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                        generator=gen)
-            sd[pre + "weight"] = w * ((1.0 / d_in) ** 0.5 / _TRUNC_STD)
+            sd[pre + "weight"] = _lecun_normal((d_out, d_in), d_in, gen)
             if mod.bias is not None:
                 sd[pre + "bias"] = torch.zeros(d_out)
+        elif isinstance(mod, Conv2d):
+            c_out, c_in, kh, kw = mod.weight.shape
+            sd[pre + "weight"] = _lecun_normal(mod.weight.shape,
+                                               c_in * kh * kw, gen)
+            if mod.bias is not None:
+                sd[pre + "bias"] = torch.zeros(c_out)
         elif isinstance(mod, Embed):
             n, d = mod.weight.shape
             sd[pre + "weight"] = (torch.randn((n, d), generator=gen)
                                   * (1.0 / d) ** 0.5)
-        elif isinstance(mod, LayerNorm):
+        elif isinstance(mod, (LayerNorm, GroupNorm, FrozenAffine)):
             d = mod.weight.shape[0]
             sd[pre + "weight"] = torch.ones(d)
             sd[pre + "bias"] = torch.zeros(d)
+        elif isinstance(mod, torch.nn.LSTM):
+            for name, p in mod.named_parameters():
+                four_h = p.shape[0]
+                if name.startswith("weight_ih"):
+                    w = _lecun_normal(p.shape, p.shape[1], gen)
+                elif name.startswith("weight_hh"):
+                    w = torch.cat([torch.nn.init.orthogonal_(
+                        torch.empty(four_h // 4, four_h // 4), generator=gen)
+                        for _ in range(4)])
+                else:
+                    w = torch.zeros(four_h)
+                sd[pre + name] = w
     return sd
 
 
@@ -299,23 +326,6 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type != "cuda":
         return t
     return t.pin_memory().to(dev, non_blocking=True)
-
-
-@contextlib.contextmanager
-def _full_precision_matmuls(on: bool):
-    """precision="f32" means full float32 products: TF32 off for the fit."""
-    if not on:
-        yield
-        return
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
 
 
 def _not_ported(what: str, item: int):
@@ -448,14 +458,7 @@ class TorchLearner(Estimator):
             raise _not_ported("the device profiler (profile)", 13)
 
     def _device(self) -> torch.device:
-        dev = torch.device(self.getDevice())
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"TorchLearner device={self.getDevice()!r} but torch sees "
-                f"no CUDA device; set device='cpu' to train on the CPU")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"TorchLearner runs on cuda or cpu, not {dev}")
-        return dev
+        return resolve_device(self.getDevice(), "TorchLearner")
 
     def _cfg_with_precision(self, cfg: dict) -> dict:
         """Reflect ``precision`` into the model's compute dtype: 'bf16'
@@ -496,17 +499,19 @@ class TorchLearner(Estimator):
         self._refuse_unported()
         dev = self._device()
         cfg = self._cfg_with_precision(dict(self.getModelConfig()))
-        # the step reads the weights it is handed; the module itself holds
-        # none (meta), so it costs no memory and no init
-        with torch.device("meta"):
-            module = build_model(cfg)
         x, y = self._prepare_data(df, cfg)
         n = len(x)
         if n == 0:
             raise ValueError("fit on an empty DataFrame")
+        # the sizes flax infers from the first batch, from the data; the
+        # step reads the weights it is handed, and the module itself holds
+        # none (meta), so it costs no memory and no init
+        sized = sized_for(cfg, x.shape)
+        with torch.device("meta"):
+            module = build_model(sized)
         mixed, grad_clip, scale_state = self._precision_setup(dev)
         params = {k: v.to(device=dev, dtype=torch.float32)
-                  for k, v in init_params(cfg, self.getSeed()).items()}
+                  for k, v in init_params(sized, self.getSeed()).items()}
         tx = make_optimizer(self.getOptimizer(), self.getLearningRate(),
                             self.getMomentum(), self.getWeightDecay())
         opt_state = tx.init(params)
@@ -527,7 +532,7 @@ class TorchLearner(Estimator):
         state = (params, opt_state, scale_state)
         scan = x.nbytes + y.nbytes <= data_cap
         run = self._run_epochs_scan if scan else self._run_epochs
-        with _full_precision_matmuls(self.getPrecision() == "f32"):
+        with full_precision_matmuls(self.getPrecision() == "f32"):
             state, stats = run(x, y, n, bs, steps, order_rng=rng_np,
                                dev=dev, step=step, state=state)
         stats["path"] = "scan" if scan else "feed"

@@ -46,7 +46,14 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.models.gbdt.leafwise, "
             "mmlspark_tpu_torch.models.gbdt.efb, "
             "mmlspark_tpu_torch.ops.gbdt_kernels, "
+            "mmlspark_tpu_torch.ops.image_ops, "
+            "mmlspark_tpu_torch.ops.image_stages, "
+            "mmlspark_tpu_torch.models.downloader, "
+            "mmlspark_tpu_torch.models.image_featurizer, "
+            "mmlspark_tpu_torch.models.import_weights, "
+            "mmlspark_tpu_torch.testing.datagen, "
             "mmlspark_tpu_torch.core.serialize; "
+            "mmlspark_tpu_torch.core.serialize._ensure_registry_populated(); "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,

@@ -197,13 +197,9 @@ def test_unported_paths_raise(flax_params, tmp_path):
         model.transform(df)
     with pytest.raises(NotImplementedError):
         build_model(dict(CFG, num_experts=4))
-    for family in ("mlp", "convnet", "resnet", "resnet50", "bilstm"):
-        with pytest.raises(NotImplementedError):
-            build_model({"type": family})
-    zipped = tmp_path / "m.model"
-    zipped.write_bytes(b"PK")
-    with pytest.raises(NotImplementedError):
-        TorchModel().setModelLocation(str(zipped))
+    from mmlspark_tpu_torch.models.downloader import ModelDownloader
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ModelDownloader(str(tmp_path / "repo"), server_url="http://zoo")
     with pytest.raises(NotImplementedError):
         TorchModel().exportStableHLO(str(tmp_path / "x.mlir"))
 
