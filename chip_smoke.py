@@ -152,6 +152,51 @@ Phases, each printing one JSON line:
    parameter printed: bf16 rounding alone puts a GroupNorm scale's
    gradient ~3e-2 from f32); the profile of one recipe step.
    The vision phases launch no kernel of the kernels line (checked).
+13. automl_tabular — the AutoML path on an adult-census-shaped table at
+   HIGGS scale (``adult_frame``: gbdt_data's 1M x 28 draws as x0..x27,
+   string categoricals education (16 levels) and workclass (8), a string
+   label), split 80/20 with ``randomSplit(seed=1)``; Featurize makes 52
+   columns. (a) ``TrainClassifier`` with LogisticRegression (defaults),
+   NaiveBayes(modelType="gaussian"), LightGBMClassifier (defaults:
+   level-wise, 100 iterations), RandomForestClassifier (50 trees) on the
+   800k rows and MultilayerPerceptronClassifier(layers=(64,), batchSize
+   1024, maxIter 5) on a 100k-row sample (cut: the defaults would be ~190k
+   host-paced steps): fit seconds, held-out transform rows/s (median of 3
+   after a warm-up), ComputeModelStatistics on the 200k held-out rows;
+   every accuracy >= 0.85 but gaussian NB's >= 0.8 (its independence
+   assumption does not hold for this label); LR's coefficients within 1e-3 (relative L2) and
+   its held-out AUC within 1e-4 of the same fit on the CPU; gaussian NB's
+   means and variances within 1e-5 of the CPU's; the LightGBM fit's first
+   10 trees equal to a 10-iteration fit of its Params through the plain
+   segment-histogram path on the card (after the counted run); 500
+   node-histogram launches per LightGBM fit and one level-wise predict
+   launch per transform, none for LR, NB and the MLP (RF's printed);
+   FindBestModel(AUC) names the learner with the highest AUC. (b)
+   ``TuneHyperparameters`` over [LogisticRegression, LightGBMClassifier]
+   (numRuns 3, numFolds 3, parallelism 4, AUC) on a featurized 100k-row
+   sample: the folds grow leaf-wise, and the launches over the search
+   (its 4 threads) equal the sum of its fits' (numLeaves x numIterations
+   node histograms each) and fold scorings' (one leaf-wise predict each);
+   the refit model's held-out AUC within 0.01 of its CV AUC. (c) the
+   reference's grid (``TRAIN_CLASSIFIER_REFERENCE_AUC`` rows of the three
+   default-tier datasets, tests/test_reference_goldens.py's configs) on
+   the card: train AUC >= the committed value - 0.02. No plain version of
+   a table kernel runs on the card in the phase's counted run (checked).
+14. automl_text — the text path on an Amazon-reviews-shaped corpus
+   (``review_corpus``: 100k documents of 20-120 Zipf(1.1) tokens over
+   50,000 words with 3 of notebook 201's planted words a document by
+   label), 80/20. (a) TextFeaturizer (2^18 dims, IDF, stop words
+   removed) -> multinomial NaiveBayes (sparse, on the host): featurize
+   rows/s and accuracy >= 0.85. (b) ``TrainClassifier(LogisticRegression)``
+   on the raw text (Featurize hashes it to 4096 dense columns, 1.3 GB on
+   the card): fit seconds, accuracy >= 0.85, and LR on a 20k-row subset
+   within 1e-3 (relative L2 of the coefficients) of the CPU's. (c)
+   Word2Vec at its defaults on the 80k training documents: vocabulary,
+   pairs, steps/s, LR on the document vectors >= 0.8, at least 3 planted
+   positive words among ``findSynonyms("great", 5)``; one SGNS step at the
+   fit's shapes within 1e-5 (relative L2: loss and both tables) of the
+   CPU's, a repeat to the same bits, its time and profile. No kernel of
+   the table launches (checked).
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -161,11 +206,13 @@ outside a checkout of the repo, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
 import statistics
 import sys
+import threading
 import time
 
 import numpy as np
@@ -252,6 +299,51 @@ BENCH_LR = 0.01
 # the zoo's shapes10 recipe (tools/build_zoo.py:34-56, 94)
 RECIPE_ROWS, RECIPE_EPOCHS, RECIPE_BATCH, RECIPE_LR = 20_000, 20, 512, 0.05
 TOL_RECIPE_ACCURACY = 0.98
+# the AutoML path: an adult-census-shaped table at HIGGS scale (gbdt_data's
+# 1M x 28 draws, two string categoricals, a string label), 80/20; the MLP
+# and the tuning search on 100k-row samples of the 800k training rows
+AUTOML_ROWS, AUTOML_SAMPLE = GBDT_ROWS, 100_000
+EDUCATION = ("Bachelors", "Some-college", "11th", "HS-grad", "Prof-school",
+             "Assoc-acdm", "Assoc-voc", "9th", "7th-8th", "12th", "Masters",
+             "1st-4th", "10th", "Doctorate", "5th-6th", "Preschool")
+WORKCLASS = ("Private", "Self-emp-not-inc", "Self-emp-inc", "Federal-gov",
+             "Local-gov", "State-gov", "Without-pay", "Never-worked")
+# the MLP's cut: batch 1024 and 5 epochs on the sample (the defaults, batch
+# 128 for 30 epochs over 800k rows, are ~190k host-paced steps)
+AUTOML_MLP = {"layers": (64,), "batchSize": 1024, "maxIter": 5}
+AUTOML_TUNE = {"numRuns": 3, "numFolds": 3, "parallelism": 4, "seed": 0}
+TOL_AUTOML_ACCURACY = 0.85
+# gaussian NB alone: given the label, x0..x2 are correlated (the label is a
+# linear mix of them), which its independence assumption cannot model; it
+# reads 0.82785 held out on 100k rows of this table (split seed 1) in both
+# packages on the CPU (tests/test_torch_automl.py::
+# test_gaussian_nb_on_the_chip_smoke_table) and 0.81926 on the card on the
+# whole table
+TOL_AUTOML_ACCURACY_NB = 0.8
+# card against the CPU: LR coefficients (relative L2) and held-out AUC;
+# gaussian NB means and variances (relative L2 of each array)
+TOL_AUTOML_LR_COEF, TOL_AUTOML_LR_AUC, TOL_AUTOML_NB = 1e-3, 1e-4, 1e-5
+# the tuned model's held-out AUC against its cross-validation metric
+TOL_TUNE_GAP = 0.01
+# the reference grid (tests/test_reference_goldens.py:108-164): the three
+# default-tier datasets, train AUC >= the committed value - 0.02
+GRID_DATASETS = ("PimaIndian.csv", "data_banknote_authentication.csv",
+                 "transfusion.csv")
+TOL_GRID = 0.02
+# the text path: an Amazon-reviews-shaped corpus (notebook 201's planted
+# words in documents of 20-120 Zipf(1.1) tokens over 50,000 words), 80/20
+# cut: 100k documents, the lever the two phases' ~150 s budget names
+# (200k added ~110 s and passed the same gates, PERF.md); they still add
+# ~222 s, most of it the tuning search's 4 threads (ROADMAP.md Queue 3)
+TEXT_DOCS, TEXT_VOCAB, TEXT_ZIPF, TEXT_LENGTHS = 100_000, 50_000, 1.1, (20, 120)
+TEXT_POSITIVE = ("great", "wonderful", "loved", "excellent", "gripping")
+TEXT_NEGATIVE = ("boring", "awful", "hated", "dull", "tedious")
+TEXT_PLANTED = 3
+TEXT_LR_SUBSET = 20_000
+TOL_TEXT_ACCURACY, TOL_W2V_ACCURACY = 0.85, 0.8
+# one SGNS step on the card against the CPU's (relative L2 of the loss and
+# of each table), and LR on the hashed text against the CPU's (coefficients)
+TOL_SGNS_STEP, TOL_TEXT_LR_COEF = 1e-5, 1e-3
 
 
 def emit(obj):
@@ -2410,6 +2502,619 @@ def phase_vision_train(torch, env, dev="cuda"):
           f"{bf16_median} (relative L2) from the CPU's in f32")
 
 
+def adult_frame(n: int = None):
+    """An adult-census-shaped table at HIGGS scale from numpy seed 0:
+    gbdt_data()'s draws (its 28 N(0, 1) columns as x0..x27, then its label
+    noise N(0, 0.5)), then education (16 levels) and workclass (8) from the
+    same generator, and the string label income = ">50K" where 2 x0 + x1 -
+    0.5 x2 + 0.8 * 1{education among its first 4 levels} + noise > 0, else
+    "<=50K"."""
+    from mmlspark_tpu_torch import DataFrame
+    n = n or AUTOML_ROWS
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, GBDT_FEATURES)).astype(np.float32)
+    noise = rng.normal(0, 0.5, n)
+    edu = rng.integers(0, len(EDUCATION), n)
+    work = rng.integers(0, len(WORKCLASS), n)
+    logit = x[:, 0] * 2 + x[:, 1] - x[:, 2] * 0.5 + 0.8 * (edu < 4) + noise
+    cols = {f"x{j}": x[:, j] for j in range(GBDT_FEATURES)}
+    cols["education"] = np.array(EDUCATION, dtype=object)[edu]
+    cols["workclass"] = np.array(WORKCLASS, dtype=object)[work]
+    cols["income"] = np.where(logit > 0, ">50K", "<=50K").astype(object)
+    return DataFrame(cols)
+
+
+def sample_rows(df, n: int, seed: int):
+    """``n`` rows of ``df`` drawn without replacement, in their order."""
+    keep = np.zeros(df.count(), dtype=bool)
+    keep[np.random.default_rng(seed).permutation(df.count())[:n]] = True
+    return df.filter(keep)
+
+
+#: the plain versions of the GBDT kernels (ops/gbdt_kernels.py)
+GBDT_PLAIN = ("node_histogram_reference", "histogram_fused_reference",
+              "segment_histogram", "compare_reduce_histogram",
+              "quant_levelwise_reference", "quant_leafwise_reference")
+
+
+@contextlib.contextmanager
+def plain_versions_counted():
+    """Counts, by name, the calls of the GBDT kernels' plain versions on CUDA
+    tensors while the block runs (from any thread); the CPU's are not
+    counted."""
+    from mmlspark_tpu_torch.ops import gbdt_kernels as gk
+    counts = dict.fromkeys(GBDT_PLAIN, 0)
+    lock = threading.Lock()
+    saved = {name: getattr(gk, name) for name in GBDT_PLAIN}
+
+    def counted(name, fn):
+        @functools.wraps(fn)
+        def call(first, *args, **kwargs):
+            if getattr(first, "is_cuda", False):
+                with lock:
+                    counts[name] += 1
+            return fn(first, *args, **kwargs)
+        return call
+    for name, fn in saved.items():
+        setattr(gk, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(gk, name, fn)
+
+
+def counted_call(fn):
+    """(result, the table's launches in the call): every count set to 0
+    just before, read just after."""
+    reset_gbdt_counts()
+    reset_kernel_counts()
+    out = fn()
+    return out, {**gbdt_counts(), **kernel_counts()}
+
+
+def launches_of(**want) -> dict:
+    """The launch counts of a call that launches ``want`` and nothing else."""
+    return {**dict.fromkeys(("node_hist", "fused", "predict", "predict_lw",
+                             "fwd", "dq", "dkv"), 0), **want}
+
+
+def check_launches(got: dict, want: dict, what: str, dev: str):
+    """The exact-count gate (on the card; on the CPU nothing launches)."""
+    if dev == "cuda":
+        check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def model_stats(scored, label: str) -> dict:
+    from mmlspark_tpu_torch.automl import ComputeModelStatistics
+    stats = ComputeModelStatistics(labelCol=label,
+                                   evaluationMetric="classification") \
+        .transform(scored)
+    return {k: float(stats.col(k)[0]) for k in ("accuracy", "AUC")}
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def synchronize(torch, dev: str):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def automl_learners(dev: str) -> dict:
+    """The learners of (a), each made for ``dev``, by name."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.models import (LogisticRegression,
+                                           MultilayerPerceptronClassifier,
+                                           NaiveBayes, RandomForestClassifier)
+    return {
+        "LogisticRegression": lambda d=dev: LogisticRegression(device=d),
+        "NaiveBayes_gaussian": lambda d=dev: NaiveBayes(modelType="gaussian",
+                                                        device=d),
+        "LightGBMClassifier": lambda d=dev: LightGBMClassifier(device=d),
+        "RandomForestClassifier": lambda d=dev: RandomForestClassifier(
+            device=d),
+        "MultilayerPerceptronClassifier":
+            lambda d=dev: MultilayerPerceptronClassifier(device=d,
+                                                         **AUTOML_MLP),
+    }
+
+
+def automl_learner_runs(torch, train, test, mlp_train, dev) -> dict:
+    """(a): each learner through TrainClassifier: fit seconds and launches,
+    held-out transform rows/s (median of 3 after a warm-up) and launches,
+    ComputeModelStatistics on the held-out rows."""
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    runs = {}
+    for name, make in automl_learners(dev).items():
+        frame = mlp_train if name.startswith("Multilayer") else train
+        synchronize(torch, dev)
+        t0 = time.perf_counter()
+        model, fit_launches = counted_call(
+            lambda: TrainClassifier(labelCol="income", model=make()).fit(frame))
+        synchronize(torch, dev)
+        fit_s = time.perf_counter() - t0
+        rows_s = host_rows_per_s(torch, lambda: model.transform(test),
+                                 test.count(), dev)
+        scored, transform_launches = counted_call(
+            lambda: model.transform(test))
+        stats = model_stats(scored, "income")
+        if name == "LightGBMClassifier":
+            check_launches(fit_launches,
+                           launches_of(node_hist=GBDT_TREES * GBDT_DEPTH),
+                           f"{name} fit", dev)
+            check_launches(transform_launches, launches_of(predict=1),
+                           f"{name} transform", dev)
+        elif name != "RandomForestClassifier":
+            check_launches(fit_launches, launches_of(), f"{name} fit", dev)
+            check_launches(transform_launches, launches_of(),
+                           f"{name} transform", dev)
+        bar = (TOL_AUTOML_ACCURACY_NB if name == "NaiveBayes_gaussian"
+               else TOL_AUTOML_ACCURACY)
+        check(stats["accuracy"] >= bar,
+              f"{name}: held-out accuracy {stats['accuracy']} < {bar}")
+        runs[name] = {"model": model, "fit_rows": frame.count(),
+                      "fit_s": fit_s, "transform_rows_per_s": rows_s,
+                      "launches": {"fit": fit_launches,
+                                   "transform": transform_launches},
+                      **stats}
+    return runs
+
+
+def automl_cpu_checks(torch, train, test, runs) -> dict:
+    """The card's LR and gaussian NB fits against the same stages on the
+    CPU (the same frame): LR coefficients and held-out AUC, NB means and
+    variances."""
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.models import LogisticRegression, NaiveBayes
+
+    def cpu_fit(est):
+        t0 = time.perf_counter()
+        model = TrainClassifier(labelCol="income", model=est).fit(train)
+        return model, time.perf_counter() - t0
+
+    lr_cpu, lr_s = cpu_fit(LogisticRegression(device="cpu"))
+    lr_card = runs["LogisticRegression"]["model"].getInnerModel()
+    coef_err = rel_l2(lr_card.getCoefficients(),
+                      lr_cpu.getInnerModel().getCoefficients())
+    auc_cpu = model_stats(lr_cpu.transform(test), "income")["AUC"]
+    auc_gap = abs(runs["LogisticRegression"]["AUC"] - auc_cpu)
+    check(coef_err <= TOL_AUTOML_LR_COEF,
+          f"LR coefficients {coef_err} (relative L2) from the CPU's")
+    check(auc_gap <= TOL_AUTOML_LR_AUC,
+          f"LR held-out AUC {auc_gap} from the CPU's")
+    nb_cpu, nb_s = cpu_fit(NaiveBayes(modelType="gaussian", device="cpu"))
+    nb_card = runs["NaiveBayes_gaussian"]["model"].getInnerModel()
+    nb_err = {k: rel_l2(getattr(nb_card, "get" + k)(),
+                        getattr(nb_cpu.getInnerModel(), "get" + k)())
+              for k in ("Means", "Variances")}
+    check(max(nb_err.values()) <= TOL_AUTOML_NB,
+          f"gaussian NB moments from the CPU's: {nb_err}")
+    return {"lr_coef_rel_l2": coef_err, "lr_auc_cpu": auc_cpu,
+            "lr_auc_gap": auc_gap, "nb_moments_rel_l2": nb_err,
+            "cpu_fit_s": {"LogisticRegression": lr_s,
+                          "NaiveBayes_gaussian": nb_s}}
+
+
+def automl_trees_vs_segment(torch, train, trained, dev) -> dict:
+    """The LightGBM learner's first 10 trees against a 10-iteration fit of
+    the same Params on the same featurized rows through the plain
+    segment-histogram path on the card, as the gbdt phase holds its fit
+    (a CPU fit took 436 s for 10 iterations at this size: the CPU's
+    compare-path histograms)."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.models.gbdt import engine, stages
+    t0 = time.perf_counter()
+    levels = trained.getLabelLevels()
+    index = {v: i for i, v in enumerate(levels)}
+    y = np.array([index[v] for v in train.col("income")], dtype=np.float32)
+    x = stages._features_matrix(
+        trained.getFeaturizeModel().transform(train), "features")
+    p = LightGBMClassifier(device=dev)._engine_params("binary", 1,
+                                                      n_rows=len(x))
+    seg = engine.fit_gbdt(x, y, p._replace(hist_impl="segment",
+                                           num_iterations=10), device=dev)
+    state = trained.getInnerModel().getBoosterState()
+    kern = stages._state_to_ensemble(state, "binary", dev)
+    same = same_trees(kern, seg)
+    check(all(same), f"the first 10 trees differ from the segment "
+                     f"fit's: {same}")
+    leaf = float(np.abs(np.asarray(state["leaf"])[:10]
+                        - seg.leaf.cpu().numpy()).max())
+    return {"trees_equal_of_10": sum(same), "leaf_max_abs_diff": leaf,
+            "seconds": time.perf_counter() - t0}
+
+
+def tuning_input(train, test):
+    """The search's input: the label indexed and the table featurized as
+    fitted on ``train``, then a 100k-row sample of ``train`` and all of
+    ``test``, each as (features, income)."""
+    from mmlspark_tpu_torch.automl import Featurize, ValueIndexer
+    vim = ValueIndexer(inputCol="income", outputCol="income").fit(train)
+    fm = Featurize(outputCol="features",
+                   excludeCols=("income",)).fit(vim.transform(train))
+
+    def featurized(frame):
+        return fm.transform(vim.transform(frame)).select("features", "income")
+    return (featurized(sample_rows(train, AUTOML_SAMPLE, seed=2)),
+            featurized(test))
+
+
+def automl_tuning(torch, train, test, dev) -> dict:
+    """(b): TuneHyperparameters over LR and LightGBM on a featurized
+    100k-row sample (leaf-wise folds: rows 4 and 6), on 4 threads. The
+    launches over the search must be the sum of its fits' and scorings'
+    (numLeaves x numIterations node histograms a leaf-wise fit, one
+    leaf-wise predict a fold's scoring, the refit's)."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.automl import tune
+    from mmlspark_tpu_torch.models import LogisticRegression
+    sample, held = tuning_input(train, test)
+    models = (LogisticRegression(device=dev), LightGBMClassifier(device=dev))
+    search = tune.TuneHyperparameters(models=models, labelCol="income",
+                                      evaluationMetric="AUC", **AUTOML_TUNE)
+    # the settings the search draws first from its seed
+    cands = tune._sample_candidates(
+        models, AUTOML_TUNE["numRuns"],
+        np.random.default_rng(AUTOML_TUNE["seed"]))
+    synchronize(torch, dev)
+    t0 = time.perf_counter()
+    tuned, launches = counted_call(lambda: search.fit(sample))
+    synchronize(torch, dev)
+    search_s = time.perf_counter() - t0
+    best = tuned.getBestSetting()
+    best_est = next(e for e, s in cands if s == best)
+    t0 = time.perf_counter()
+    best_est.copy(dict(best, labelCol="income")).fit(sample)
+    synchronize(torch, dev)
+    refit_s = time.perf_counter() - t0
+    per_fit = [s["numLeaves"] * s["numIterations"] for e, s in cands
+               if isinstance(e, LightGBMClassifier)]
+    lgbm_best = isinstance(best_est, LightGBMClassifier)
+    want = launches_of(
+        node_hist=AUTOML_TUNE["numFolds"] * sum(per_fit)
+        + (best["numLeaves"] * best["numIterations"] if lgbm_best else 0),
+        predict_lw=AUTOML_TUNE["numFolds"] * len(per_fit))
+    check_launches(launches, want, "the tuning search", dev)
+    scored, held_launches = counted_call(lambda: tuned.transform(held))
+    check_launches(held_launches, launches_of(predict_lw=int(lgbm_best)),
+                   "the tuned model's held-out transform", dev)
+    held_auc = model_stats(scored, "income")["AUC"]
+    gap = abs(held_auc - tuned.getBestMetric())
+    check(gap <= TOL_TUNE_GAP,
+          f"the tuned model's held-out AUC {held_auc} is {gap} from its "
+          f"cross-validation AUC {tuned.getBestMetric()}")
+    return {"rows": sample.count(), **AUTOML_TUNE,
+            "candidates": [[type(e).__name__, s] for e, s in cands],
+            "best_estimator": type(best_est).__name__, "best_setting": best,
+            "cv_auc": tuned.getBestMetric(), "held_out_auc": held_auc,
+            "search_s": search_s, "refit_s": refit_s,
+            "fold_fits_s": search_s - refit_s,
+            "launches": launches, "launches_expected": want,
+            "held_out_launches": held_launches}
+
+
+def grid_learners(dev: str) -> dict:
+    """tests/test_reference_goldens.py:108-124's configs, for ``dev``, and
+    whether its AUC reads probability scores or scored labels."""
+    from mmlspark_tpu_torch.models import (DecisionTreeClassifier,
+                                           GBTClassifier, LogisticRegression,
+                                           MultilayerPerceptronClassifier,
+                                           NaiveBayes, RandomForestClassifier)
+    return {
+        "LogisticRegression": (
+            lambda: LogisticRegression(device=dev).setMaxIter(80), "scores"),
+        "DecisionTreeClassification": (
+            lambda: DecisionTreeClassifier(device=dev).setMaxBin(63),
+            "scores"),
+        "RandomForestClassification": (
+            lambda: RandomForestClassifier(device=dev).setNumIterations(20)
+            .setMaxBin(63), "scores"),
+        "GradientBoostedTreesClassification": (
+            lambda: GBTClassifier(device=dev).setNumIterations(20)
+            .setMaxBin(63), "labels"),
+        "NaiveBayesClassifier": (lambda: NaiveBayes(device=dev), "labels"),
+        "MultilayerPerceptronClassifier": (
+            lambda: MultilayerPerceptronClassifier(device=dev)
+            .setMaxIter(120), "labels"),
+    }
+
+
+def automl_grid(dev: str) -> list:
+    """(c): each TRAIN_CLASSIFIER_REFERENCE_AUC row of GRID_DATASETS on
+    ``dev``: train AUC >= the committed value - TOL_GRID."""
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.automl.metrics import auc_score
+    from mmlspark_tpu_torch.testing.reference_datasets import (
+        REFERENCE_DATASETS, TRAIN_CLASSIFIER_REFERENCE_AUC)
+    learners = grid_learners(dev)
+    rows = []
+    for (dataset, algo), want in sorted(
+            TRAIN_CLASSIFIER_REFERENCE_AUC.items()):
+        if dataset not in GRID_DATASETS:
+            continue
+        gen, label = REFERENCE_DATASETS[dataset]
+        df = gen()
+        vals = np.asarray(df.col(label))
+        uniq = sorted(set(vals.tolist()))
+        y = (vals == uniq[1]).astype(np.int64)
+        make, mode = learners[algo]
+        t0 = time.perf_counter()
+        out = TrainClassifier(labelCol=label, model=make()).fit(df) \
+            .transform(df)
+        seconds = time.perf_counter() - t0
+        score = (np.stack(out.col("probability"))[:, 1] if mode == "scores"
+                 else (np.asarray(out.col("scored_labels"))
+                       == uniq[1]).astype(float))
+        auc = auc_score(y, score)
+        rows.append({"dataset": dataset, "algorithm": algo, "auc_from": mode,
+                     "train_auc": auc, "reference": want, "seconds": seconds})
+        check(auc >= want - TOL_GRID,
+              f"{dataset} {algo}: train AUC {auc} < {want} - {TOL_GRID}")
+    return rows
+
+
+def phase_automl_tabular(torch, env, dev="cuda"):
+    """The AutoML path on an adult-census-shaped table at HIGGS scale: (a)
+    five learners through TrainClassifier -> transform ->
+    ComputeModelStatistics -> FindBestModel, held against the CPU; (b)
+    TuneHyperparameters on 4 threads; (c) the reference's grid. Returns the
+    table kernels' launches by path."""
+    from mmlspark_tpu_torch.automl import FindBestModel
+    t_phase = time.perf_counter()
+    df = adult_frame()
+    train, test = df.randomSplit([0.8, 0.2], seed=1)
+    mlp_train = sample_rows(train, AUTOML_SAMPLE, seed=3)
+    with plain_versions_counted() as plain:
+        runs = automl_learner_runs(torch, train, test, mlp_train, dev)
+        cpu = automl_cpu_checks(torch, train, test, runs)
+        aucs = {name: r["AUC"] for name, r in runs.items()}
+        best = FindBestModel(models=[r["model"] for r in runs.values()],
+                             labelCol="income",
+                             evaluationMetric="AUC").fit(test)
+        picked = next(n for n, r in runs.items()
+                      if r["model"] is best.getBestModel())
+        check(picked == max(aucs, key=aucs.get),
+              f"FindBestModel picked {picked}; the highest AUC is "
+              f"{max(aucs, key=aucs.get)} ({aucs})")
+        tuning = automl_tuning(torch, train, test, dev)
+        grid, grid_launches = counted_call(lambda: automl_grid(dev))
+    check(not any(plain.values()),
+          f"plain versions of the table's kernels ran on the card: {plain}")
+    # the plain path on the card, after the main path's count was read
+    cpu["lightgbm_vs_segment"] = automl_trees_vs_segment(
+        torch, train, runs["LightGBMClassifier"]["model"], dev)
+    emit({"phase": "automl_tabular", "rows": df.count(),
+          "train_rows": train.count(), "test_rows": test.count(),
+          "features": int(len(runs["LogisticRegression"]["model"]
+                              .getFeaturizeModel().transform(test.limit(1))
+                              .col("features")[0])),
+          "learners": {n: {k: v for k, v in r.items() if k != "model"}
+                       for n, r in runs.items()},
+          "vs_cpu": cpu, "find_best_model": {"picked": picked,
+                                             "auc": best.getBestModelMetrics()},
+          "tuning": tuning, "reference_grid": grid,
+          "reference_grid_launches": grid_launches,
+          "plain_versions_on_card": plain,
+          "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+    fit_hist = sum(runs[n]["launches"]["fit"]["node_hist"]
+                   for n in ("LightGBMClassifier", "RandomForestClassifier"))
+    return {"node_hist_fit": fit_hist,
+            "node_hist_tune": tuning["launches"]["node_hist"],
+            "predict": sum(runs[n]["launches"]["transform"]["predict"]
+                           for n in runs),
+            "predict_lw": tuning["launches"]["predict_lw"]
+            + tuning["held_out_launches"]["predict_lw"]}
+
+
+def review_corpus(n: int = None):
+    """An Amazon-reviews-shaped corpus from numpy seed 0: n documents of
+    TEXT_LENGTHS tokens drawn from TEXT_VOCAB words ("w0", "w1", ...) with
+    Zipf(TEXT_ZIPF) frequencies, a label per document (fair coin), and
+    TEXT_PLANTED of the label's notebook-201 words (TEXT_POSITIVE or
+    TEXT_NEGATIVE) written over random positions. Returns (texts, labels)."""
+    n = n or TEXT_DOCS
+    rng = np.random.default_rng(0)
+    p = np.arange(1, TEXT_VOCAB + 1, dtype=np.float64) ** -TEXT_ZIPF
+    p /= p.sum()
+    lengths = rng.integers(TEXT_LENGTHS[0], TEXT_LENGTHS[1] + 1, n)
+    labels = (rng.random(n) < 0.5).astype(np.int64)
+    ids = rng.choice(TEXT_VOCAB, size=int(lengths.sum()), p=p)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    slots = rng.integers(0, lengths[:, None], (n, TEXT_PLANTED))
+    which = rng.integers(0, len(TEXT_POSITIVE), (n, TEXT_PLANTED))
+    ids[starts[:, None] + slots] = (TEXT_VOCAB + labels[:, None]
+                                    * len(TEXT_NEGATIVE) + which)
+    words = np.array([f"w{i}" for i in range(TEXT_VOCAB)]
+                     + list(TEXT_NEGATIVE) + list(TEXT_POSITIVE),
+                     dtype=object)[ids]
+    texts = np.array([" ".join(words[s:s + k])
+                      for s, k in zip(starts.tolist(), lengths.tolist())],
+                     dtype=object)
+    return texts, labels
+
+
+def accuracy_of(model, frame) -> float:
+    pred = np.asarray(model.transform(frame).col("prediction"))
+    return float((pred == np.asarray(frame.col("label"))).mean())
+
+
+def sgns_step_checks(torch, w2v, dev) -> dict:
+    """One SGNS step at the fit's shapes (the fitted vectors, random output
+    table and mid-run Adam state, random pairs and negatives): the card's
+    against the CPU's, a repeat on the card to the same bits, its time
+    (CUDA events) and its profile."""
+    from mmlspark_tpu_torch.ops.word2vec import _sgns_step
+    vecs = np.asarray(w2v.getWordVectors())
+    v, d = vecs.shape
+    b, k = w2v.getBatchSize(), w2v.getNegativeSamples()
+    rng = np.random.default_rng(3)
+    host = {"e_in": vecs,
+            "e_out": (rng.normal(size=(v, d)) * 0.1).astype(np.float32),
+            "mu_in": (rng.normal(size=(v, d)) * 1e-3).astype(np.float32),
+            "mu_out": (rng.normal(size=(v, d)) * 1e-3).astype(np.float32),
+            "nu_in": (rng.random((v, d)) * 1e-5).astype(np.float32),
+            "nu_out": (rng.random((v, d)) * 1e-5).astype(np.float32),
+            "c": rng.integers(0, v, b), "t": rng.integers(0, v, b),
+            "negs": rng.integers(0, v, (b, k))}
+
+    def step_on(device):
+        t = {n: torch.from_numpy(a).to(device) for n, a in host.items()}
+        state = {"count": torch.tensor(3, dtype=torch.int32, device=device),
+                 "mu": {"in": t["mu_in"], "out": t["mu_out"]},
+                 "nu": {"in": t["nu_in"], "out": t["nu_out"]}}
+        return lambda: _sgns_step(t["e_in"], t["e_out"], state, t["c"],
+                                  t["t"], t["negs"], 0.025)
+
+    card, cpu = step_on(dev), step_on("cpu")
+    got, want = card(), cpu()
+    errs = {n: rel_l2(g.cpu().numpy(), w.numpy())
+            for n, g, w in (("loss", got[3], want[3]),
+                            ("emb_in", got[0], want[0]),
+                            ("emb_out", got[1], want[1]))}
+    again = card()
+    repeat = all(torch.equal(a, b) for a, b in zip(got[:2] + got[3:],
+                                                    again[:2] + again[3:]))
+    check(max(errs.values()) <= TOL_SGNS_STEP,
+          f"one SGNS step on the card vs the CPU (relative L2): {errs}")
+    check(repeat, "two SGNS steps on the same inputs gave other bits")
+    out = {"shape": {"vocab": v, "dim": d, "batch": b, "negatives": k},
+           "rel_l2_vs_cpu": errs, "repeat_same_bits": repeat}
+    if dev == "cuda":
+        out["step_ms"] = cuda_ms(torch, card, iters=20, rounds=3)
+        out["profile_of_one_step"] = device_breakdown(torch, card)
+    return out
+
+
+def phase_automl_text(torch, env, dev="cuda"):
+    """The text path on an Amazon-reviews-shaped corpus: (a) TextFeaturizer
+    -> multinomial NB (sparse, on the host); (b) TrainClassifier(LR) on the
+    raw text column (Featurize hashes it to 4096 dense columns on the card);
+    (c) Word2Vec -> document vectors -> LR, findSynonyms, one SGNS step
+    against the CPU. No kernel of the table launches."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.models import LogisticRegression, NaiveBayes
+    from mmlspark_tpu_torch.ops import TextFeaturizer, Word2Vec
+    t_phase = time.perf_counter()
+    reset_gbdt_counts()
+    reset_kernel_counts()
+    texts, labels = review_corpus()
+    df = DataFrame({"text": texts, "label": labels})
+    train, test = df.randomSplit([0.8, 0.2], seed=1)
+    corpus_s = time.perf_counter() - t_phase
+
+    # (a) TextFeaturizer's defaults (2^18 dims, IDF) with stop words removed
+    t0 = time.perf_counter()
+    tfm = TextFeaturizer(inputCol="text", outputCol="features",
+                         useStopWordsRemover=True).fit(train)
+    tf_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ftrain = tfm.transform(train)
+    featurize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nb = NaiveBayes(device=dev).fit(ftrain)
+    nb_fit_s = time.perf_counter() - t0
+    acc_a = accuracy_of(nb, tfm.transform(test))
+    check(acc_a >= TOL_TEXT_ACCURACY,
+          f"TextFeaturizer + NaiveBayes accuracy {acc_a}")
+
+    # (b) LR through TrainClassifier on the raw text
+    synchronize(torch, dev)
+    t0 = time.perf_counter()
+    tc = TrainClassifier(labelCol="label",
+                         model=LogisticRegression(device=dev)).fit(train)
+    synchronize(torch, dev)
+    tc_fit_s = time.perf_counter() - t0
+    scored = tc.transform(test)
+    acc_b = float((np.asarray(scored.col("scored_labels"))
+                   == np.asarray(test.col("label"))).mean())
+    check(acc_b >= TOL_TEXT_ACCURACY,
+          f"TrainClassifier(LogisticRegression) accuracy {acc_b}")
+    sub = tc.getFeaturizeModel().transform(train.limit(TEXT_LR_SUBSET))
+    lr_card = LogisticRegression(device=dev).fit(sub)
+    lr_cpu = LogisticRegression(device="cpu").fit(sub)
+    lr_err = rel_l2(lr_card.getCoefficients(), lr_cpu.getCoefficients())
+    check(lr_err <= TOL_TEXT_LR_COEF,
+          f"LR on the hashed text: coefficients {lr_err} (relative L2) "
+          f"from the CPU's")
+
+    # (c) Word2Vec at its defaults
+    synchronize(torch, dev)
+    t0 = time.perf_counter()
+    w2v = Word2Vec(inputCol="text", outputCol="features",
+                   device=dev).fit(train)
+    w2v_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vtrain = w2v.transform(train)
+    vectors_s = time.perf_counter() - t0
+    acc_c = accuracy_of(LogisticRegression(device=dev).fit(vtrain),
+                        w2v.transform(test))
+    check(acc_c >= TOL_W2V_ACCURACY,
+          f"Word2Vec document vectors + LR accuracy {acc_c}")
+    syn = list(w2v.findSynonyms(TEXT_POSITIVE[0], 5).col("word"))
+    n_pos = sum(w in TEXT_POSITIVE for w in syn)
+    check(n_pos >= 3, f"findSynonyms({TEXT_POSITIVE[0]!r}, 5) = {syn}")
+    step = sgns_step_checks(torch, w2v, dev)
+    launches = {**gbdt_counts(), **kernel_counts()}
+    check(not any(launches.values()),
+          f"the text path launched kernels of the table: {launches}")
+    stats = w2v_pairs_and_steps(w2v, train)
+    check(stats["vocabulary"] == len(w2v.getVocabulary()),
+          f"Word2Vec's vocabulary {len(w2v.getVocabulary())} words, the "
+          f"host code's {stats['vocabulary']}")
+    emit({"phase": "automl_text", "docs": df.count(),
+          "train_docs": train.count(), "corpus_s": corpus_s,
+          "text_featurizer": {"num_features": tfm.getNumFeatures(),
+                              "fit_s": tf_fit_s,
+                              "featurize_rows_per_s": train.count()
+                              / featurize_s,
+                              "naive_bayes_fit_s": nb_fit_s,
+                              "accuracy": acc_a},
+          "train_classifier_lr": {"fit_s": tc_fit_s, "accuracy": acc_b,
+                                  "features": int(len(sub.col("features")[0])),
+                                  "coef_rel_l2_vs_cpu_subset": lr_err,
+                                  "subset_rows": sub.count()},
+          "word2vec": {"vocabulary": len(w2v.getVocabulary()),
+                       "pairs_per_epoch": stats["pairs_per_epoch"],
+                       "steps": stats["steps"], "fit_s": w2v_s,
+                       "fit_steps_per_s": stats["steps"] / w2v_s,
+                       "transform_rows_per_s": train.count() / vectors_s,
+                       "lr_accuracy": acc_c,
+                       "synonyms": {TEXT_POSITIVE[0]: syn,
+                                    "planted_positive": n_pos},
+                       "step": step},
+          "launches": launches, "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+
+
+def w2v_pairs_and_steps(model, df) -> dict:
+    """The vocabulary, skip-gram pairs per epoch and SGNS steps of
+    ``Word2Vec.fit`` on ``df`` with ``model``'s Params: its host code run
+    again, with the seeded generator drawn as the fit draws it (the
+    embedding init, then per epoch the pairs' windows and their order)."""
+    from mmlspark_tpu_torch.ops import word2vec as w
+    docs = w._tokenized(df.col(model.getInputCol()))
+    vocab, _ = w._build_vocab(docs, model.getMinCount())
+    rng = np.random.default_rng(model.getSeed())
+    rng.random((len(vocab), model.getVectorSize()), dtype=np.float32)
+    ids, docm = w._corpus_ids(docs, {t: i for i, t in enumerate(vocab)})
+    pairs = []
+    for _ in range(model.getMaxIter()):
+        n = len(w._skipgram_pairs(ids, docm, model.getWindowSize(), rng)[0])
+        if n == 0:
+            break
+        pairs.append(n)
+        rng.permutation(n)
+    bs = model.getBatchSize()
+    return {"vocabulary": len(vocab), "pairs_per_epoch": pairs,
+            "steps": sum(-(-n // bs) for n in pairs)}
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -2424,7 +3129,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
-          "vision_train")
+          "vision_train", "automl_tabular", "automl_text")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -2438,6 +3143,8 @@ PHASE_FNS = {
     "vision_ops": phase_vision_ops,
     "vision_serve": phase_vision_serve,
     "vision_train": phase_vision_train,
+    "automl_tabular": phase_automl_tabular,
+    "automl_text": phase_automl_text,
 }
 
 
@@ -2497,9 +3204,17 @@ def main(argv=None) -> int:
     check(not any(vision_launches.values()),
           f"the vision phases launched kernels of the table: "
           f"{vision_launches}")
+    automl = phase_automl_tabular(torch, env)
+    phase_automl_text(torch, env)
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
-                    "fit_efb": efb["node_hist"]}
+                    "fit_efb": efb["node_hist"],
+                    "automl_fit": automl["node_hist_fit"],
+                    "automl_tune": automl["node_hist_tune"]}
+    predict_by_path = {"transform": gbdt["predict"],
+                       "automl_transform": automl["predict"]}
+    predict_lw_by_path = {"transform_leafwise": leafwise["predict_lw"],
+                          "automl_tune": automl["predict_lw"]}
     csrc = "mmlspark_tpu_torch/ops/csrc/"
     replaces = "mmlspark_tpu/ops/pallas_kernels.py:"
     emit({"kernels": [
@@ -2537,11 +3252,10 @@ def main(argv=None) -> int:
                    sum(hist_by_path.values()), hist_by_path,
                    gbdt_worst["node_hist"], gbdt_timing["node_hist"]),
         gbdt_entry("gbdt_predict_quant_levelwise", "gbdt_predict.cu", "585",
-                   gbdt["predict"], {"transform": gbdt["predict"]},
+                   sum(predict_by_path.values()), predict_by_path,
                    gbdt_worst["predict"], gbdt_timing["predict"]),
         gbdt_entry("gbdt_predict_quant_leafwise", "gbdt_predict.cu", "622",
-                   leafwise["predict_lw"],
-                   {"transform_leafwise": leafwise["predict_lw"]},
+                   sum(predict_lw_by_path.values()), predict_lw_by_path,
                    gbdt_worst["predict_lw"], gbdt_timing["predict_lw"]),
         gbdt_entry("histogram_fused", "gbdt_histogram.cu", "769",
                    gbdt["fused"],

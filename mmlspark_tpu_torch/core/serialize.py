@@ -38,11 +38,19 @@ _SEP = "/"
 
 def _ensure_registry_populated():
     # importing the stage modules registers every stage subclass
+    import mmlspark_tpu_torch.automl.featurize  # noqa: F401
+    import mmlspark_tpu_torch.automl.model_statistics  # noqa: F401
+    import mmlspark_tpu_torch.automl.train_classifier  # noqa: F401
+    import mmlspark_tpu_torch.automl.tune  # noqa: F401
+    import mmlspark_tpu_torch.automl.value_indexer  # noqa: F401
+    import mmlspark_tpu_torch.models.classical  # noqa: F401
     import mmlspark_tpu_torch.models.gbdt.stages  # noqa: F401
     import mmlspark_tpu_torch.models.image_featurizer  # noqa: F401
     import mmlspark_tpu_torch.models.torch_model  # noqa: F401
     import mmlspark_tpu_torch.models.trainer  # noqa: F401
     import mmlspark_tpu_torch.ops.image_stages  # noqa: F401
+    import mmlspark_tpu_torch.ops.text_stages  # noqa: F401
+    import mmlspark_tpu_torch.ops.word2vec  # noqa: F401
 
 
 def _is_tensor(v) -> bool:

@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -104,22 +105,40 @@ def _token_matrix(df: DataFrame, col_name: str) -> np.ndarray:
     return mat
 
 
+#: guards the count of threads inside ``full_precision_matmuls(True)`` and
+#: the TF32 switches saved by the first of them: the switches are
+#: process-global, so two threads saving and restoring them on their own
+#: could turn TF32 back on inside another thread's block
+_TF32_SWITCH_LOCK = threading.Lock()
+_tf32_blocks = 0
+_tf32_saved = None
+
+
 @contextlib.contextmanager
 def full_precision_matmuls(on: bool):
     """Full float32 products while ``on``: TF32 off for cuBLAS and cuDNN
-    (PyTorch lets cuDNN's convolutions take TF32 by default)."""
+    (PyTorch lets cuDNN's convolutions take TF32 by default). Blocks of
+    several threads overlap: the first one in turns TF32 off and the last
+    one out restores the switches, so each sees TF32 off throughout."""
+    global _tf32_blocks, _tf32_saved
     if not on:
         yield
         return
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    with _TF32_SWITCH_LOCK:
+        if _tf32_blocks == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_blocks += 1
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+        with _TF32_SWITCH_LOCK:
+            _tf32_blocks -= 1
+            if _tf32_blocks == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
 
 
 class TorchModel(Transformer):

@@ -4,7 +4,8 @@
 Kernel wrappers, each beside its plain PyTorch version. On CUDA tensors a
 wrapper launches its hand-written kernel or raises (there is no fallback);
 on CPU tensors it runs the plain version. Each counts its kernel launches in
-a plain int attribute, ``launches``, and nowhere else.
+a plain int attribute, ``launches``, and nowhere else; the count is taken
+under a lock, so fits on several threads (TuneHyperparameters) lose none.
 
 * :func:`mxu_node_histogram` (``_node_hist_kernel``) — per-(node, feature,
   bin) grad/hess sums; ``csrc/gbdt_histogram.cu`` mode 0.
@@ -54,8 +55,19 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
+
+_launch_count_lock = threading.Lock()
+
+
+def _count_launch(wrapper):
+    """One more launch of ``wrapper``'s kernel (``+=`` on an attribute is
+    a read and a write, which two threads can interleave)."""
+    with _launch_count_lock:
+        wrapper.launches += 1
+
 
 #: the quantized predict kernels' caps (pallas_kernels.py:581-582): nodes
 #: of a level-wise tree or split rounds of a leaf-wise one, and leaves; kept
@@ -365,7 +377,7 @@ def mxu_node_histogram(bins_t, node, g, h, *, n_nodes: int,
         0, bins_t, node.contiguous(), g.contiguous(), h.contiguous(), N,
         bins_t.stride(0), F, n_bins, n_nodes, n_nodes * n_bins,
         (n_nodes, F, n_bins), "mxu_node_histogram")
-    mxu_node_histogram.launches += 1
+    _count_launch(mxu_node_histogram)
     return out
 
 
@@ -422,7 +434,7 @@ def histogram_fused(bins, grad, hess, n_bins: int = 256):
     out = _launch_histogram(
         1, bins, None, grad.contiguous(), hess.contiguous(), N,
         bins.stride(0), F, 1, 1, n_bins, (F, n_bins), "histogram_fused")
-    histogram_fused.launches += 1
+    _count_launch(histogram_fused)
     return out
 
 
@@ -545,7 +557,7 @@ def gbdt_predict_quant_levelwise(bins_t, feature, threshold, leaf, *,
             threshold.data_ptr(), leaf.data_ptr(), out.data_ptr(), n, d, T, K,
             depth, torch.cuda.current_stream(bins_t.device).cuda_stream)
     _raise_on(rc, lib, "gbdt_predict_quant_levelwise")
-    gbdt_predict_quant_levelwise.launches += 1
+    _count_launch(gbdt_predict_quant_levelwise)
     return out
 
 
@@ -725,7 +737,7 @@ def gbdt_predict_quant_leafwise(bins_t, split_leaf, feature, threshold,
             out.data_ptr(), n, d, T, K, R,
             torch.cuda.current_stream(bins_t.device).cuda_stream)
     _raise_on(rc, lib, "gbdt_predict_quant_leafwise")
-    gbdt_predict_quant_leafwise.launches += 1
+    _count_launch(gbdt_predict_quant_leafwise)
     return out
 
 

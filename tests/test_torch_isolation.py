@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: ``mmlspark_tpu_torch`` and ``chip_smoke.py``
 import no jax, flax or optax, and nothing of the JAX package — only the
-tests import both."""
+tests import both. Nor do they import sklearn, pandas or pyarrow when a
+module is imported (the card's machine has none of them): such an import
+may only sit inside the function that needs it (``DataFrame.fromPandas``)."""
 
 import ast
 import json
@@ -14,6 +16,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mmlspark_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+NOT_ON_THE_CARD = ("sklearn", "pandas", "pyarrow")
 
 
 def _imported_modules(path: Path) -> set:
@@ -31,9 +34,27 @@ def _imported_modules(path: Path) -> set:
     return names
 
 
-def _forbidden(names) -> list:
+def _module_level_imports(path: Path) -> set:
+    """Modules imported when ``path`` is imported: every import outside a
+    function body (class bodies and top-level blocks run at import)."""
+    names = set()
+    todo = [ast.parse(path.read_text(), str(path))]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+        todo.extend(ast.iter_child_nodes(node))
+    return names
+
+
+def _forbidden(names, roots=FORBIDDEN) -> list:
     return sorted(n for n in names
-                  if n.split(".")[0] in FORBIDDEN)
+                  if n.split(".")[0] in roots)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -52,6 +73,14 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.models.image_featurizer, "
             "mmlspark_tpu_torch.models.import_weights, "
             "mmlspark_tpu_torch.testing.datagen, "
+            "mmlspark_tpu_torch.testing.reference_datasets, "
+            "mmlspark_tpu_torch.ops.text_stages, "
+            "mmlspark_tpu_torch.ops.word2vec, "
+            "mmlspark_tpu_torch.models.classical, "
+            "mmlspark_tpu_torch.automl.featurize, "
+            "mmlspark_tpu_torch.automl.train_classifier, "
+            "mmlspark_tpu_torch.automl.model_statistics, "
+            "mmlspark_tpu_torch.automl.tune, "
             "mmlspark_tpu_torch.core.serialize; "
             "mmlspark_tpu_torch.core.serialize._ensure_registry_populated(); "
             "print(json.dumps(sorted(sys.modules)))")
@@ -61,6 +90,7 @@ def test_importing_the_port_loads_no_jax():
                          check=True).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
     assert _forbidden(loaded) == []
+    assert _forbidden(loaded, NOT_ON_THE_CARD) == []
     assert "torch" in loaded
 
 
@@ -69,12 +99,23 @@ def test_importing_the_port_loads_no_jax():
     if "_build" not in p.relative_to(PORT).parts))   # build outputs
 def test_port_sources_import_no_jax(path):
     assert _forbidden(_imported_modules(ROOT / path)) == []
+    assert _forbidden(_module_level_imports(ROOT / path),
+                      NOT_ON_THE_CARD) == []
 
 
 def test_chip_smoke_imports_no_jax():
     names = _imported_modules(ROOT / "chip_smoke.py")
     assert _forbidden(names) == []
+    assert _forbidden(names, NOT_ON_THE_CARD) == []
     assert "mmlspark_tpu_torch" in {n.split(".")[0] for n in names}
+
+
+def test_module_level_imports_skip_function_bodies(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import numpy\nclass C:\n    import scipy\n"
+                   "def f():\n    import pandas\n"
+                   "if True:\n    from pyarrow import lib\n")
+    assert _module_level_imports(src) == {"numpy", "scipy", "pyarrow"}
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
