@@ -198,6 +198,32 @@ Phases, each printing one JSON line:
    CPU's, a repeat to the same bits, its time and profile. No kernel of
    the table launches (checked).
 
+15. platform — the stages, telemetry, profiler and fault base of the port
+   on the GBDT and training paths. The AutoML table (``platform_frame``:
+   ``adult_frame`` with 1 % of x3 set to NaN from numpy seed SEED + 11)
+   through CleanMissingData(Median) -> DataConversion(x4, double) ->
+   SelectColumns -> ClassBalancer(workclass) first feeds a leaf-wise
+   TrainClassifier(LightGBMClassifier, 31 leaves, 20 iterations) whose two
+   transforms run under ``telemetry.profiler``: one ``gbdt.predict_quant``
+   call, one row-6 launch and FLOPs and bytes > 0 each. Then the same
+   stages before Profiler(Timer(logToProfiler=True)(TrainClassifier(
+   LightGBMClassifier, 20 level-wise iterations))) as one Pipeline, fitted
+   once; its model's transform with telemetry off, then on: exactly 20
+   iterations, 20 iteration times and one bin time, the spans gbdt/fit
+   holding gbdt/bin and 20 gbdt/iter/step, a predict-table gauge > 0, 100
+   row-4 launches and one row-5 launch in each run, the Chrome trace
+   holding the Timer's range and CUDA kernels, the predictions the same
+   bits with telemetry on and off (the two transforms' seconds printed, a
+   reading), SummarizeData over the scored frame. Last the training
+   slice at 2 layers (``PLATFORM_LAYERS``), one step a dispatch:
+   ``TorchLearner(profile=True, sloConfig=...)`` — the profiled FLOPs of a
+   step within 10 % of ``train_step_flops`` (rows 1-3 included through the
+   kernels' reports), one step-time observation and one profiled call a
+   step, the SLO report naming its objective, the memory peak gauge equal
+   to ``max_memory_allocated`` — then two clean fits and one whose 4th
+   step faults once (``PLATFORM_FAULT``) and is retried: its loss and
+   parameters no further from the clean fits than twice their own gap.
+
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
 the last line; nothing falls back to the CPU. Without a CUDA device, or
@@ -206,6 +232,7 @@ outside a checkout of the repo, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -340,6 +367,14 @@ TEXT_POSITIVE = ("great", "wonderful", "loved", "excellent", "gripping")
 TEXT_NEGATIVE = ("boring", "awful", "hated", "dull", "tedious")
 TEXT_PLANTED = 3
 TEXT_LR_SUBSET = 20_000
+# the platform phase: the AutoML table with 1 % of x3 set to NaN; the
+# pipeline's LightGBMClassifier (level-wise) and the leaf-wise fit at 20
+# iterations; the training slice at 2 layers, one step a dispatch, its 4th
+# step faulted once; the profiled FLOPs of a step within 10 % of the
+# analytic count; a step-time budget no step reaches
+PLATFORM_NAN_SHARE, PLATFORM_ITERATIONS, PLATFORM_LAYERS = 0.01, 20, 2
+PLATFORM_FAULT = "trainer.step:error:1.0:3:1"
+TOL_PLATFORM_FLOPS, PLATFORM_STEP_BUDGET_S = 0.10, 10.0
 TOL_TEXT_ACCURACY, TOL_W2V_ACCURACY = 0.85, 0.8
 # one SGNS step on the card against the CPU's (relative L2 of the loss and
 # of each table), and LR on the hashed text against the CPU's (coefficients)
@@ -3115,6 +3150,406 @@ def w2v_pairs_and_steps(model, df) -> dict:
             "steps": sum(-(-n // bs) for n in pairs)}
 
 
+# ---------------------------------------------------------------- platform
+
+def platform_frame():
+    """adult_frame() with PLATFORM_NAN_SHARE of x3's rows set to NaN, the
+    rows drawn from numpy seed SEED + 11."""
+    df = adult_frame()
+    x3 = df.col("x3").copy()
+    rng = np.random.default_rng(SEED + 11)
+    x3[rng.choice(len(x3), int(len(x3) * PLATFORM_NAN_SHARE),
+                  replace=False)] = np.nan
+    return df.withColumn("x3", x3)
+
+
+def platform_pipeline(trace_dir: str, dev: str):
+    """CleanMissingData(Median) -> DataConversion -> SelectColumns ->
+    ClassBalancer -> Profiler(Timer(TrainClassifier(LightGBMClassifier,
+    PLATFORM_ITERATIONS iterations, level-wise))). TrainClassifier takes
+    no weight column, so ClassBalancer weighs workclass (drawn apart from
+    the label) and its column rides along as a feature: a weight of the
+    label would leak it."""
+    from mmlspark_tpu_torch import LightGBMClassifier, Pipeline
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.stages import (ClassBalancer, CleanMissingData,
+                                           DataConversion, Profiler,
+                                           SelectColumns, Timer)
+    train = TrainClassifier(labelCol="income", model=LightGBMClassifier(
+        device=dev, numIterations=PLATFORM_ITERATIONS,
+        growthPolicy="depthwise"))
+    keep = tuple(f"x{j}" for j in range(GBDT_FEATURES - 1)) + (
+        "education", "workclass", "income")
+    return Pipeline(stages=(
+        CleanMissingData(inputCols=("x3",), cleaningMode="Median"),
+        DataConversion(cols=("x4",), convertTo="double"),
+        SelectColumns(cols=keep),
+        ClassBalancer(inputCol="workclass", outputCol="workclass_weight"),
+        Profiler(traceDir=trace_dir, stage=Timer(
+            logToProfiler=True, logToConsole=False, stage=train))))
+
+
+def same_frames(a, b) -> bool:
+    """The same columns, dtypes and values, bit for bit (vector cells
+    element by element, NaN where NaN)."""
+    if a.columns != b.columns or a.count() != b.count():
+        return False
+    for c in a.columns:
+        x, y = a.col(c), b.col(c)
+        if x.dtype != y.dtype:
+            return False
+        if x.dtype != object:
+            if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                return False
+        elif not all(np.array_equal(np.asarray(u), np.asarray(v))
+                     for u, v in zip(x, y)):
+            return False
+    return True
+
+
+def nested_spans(events, outer: str, prefix: str) -> dict:
+    """The spans named ``prefix``* by name, and whether each lies in time
+    inside one ``outer`` span."""
+    outs = [e for e in events if e["name"] == outer]
+    inner = [e for e in events if e["name"].startswith(prefix)
+             and e["name"] != outer]
+    inside = all(any(o["ts"] <= e["ts"]
+                     and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+                     for o in outs) for e in inner)
+    return {"outer": len(outs), "names": dict(collections.Counter(
+        e["name"] for e in inner)), "nested": bool(outs) and inside}
+
+
+def trace_summary(path: str, dev: str) -> dict:
+    """From a torch.profiler Chrome trace: whether it holds the Timer's
+    range, its CUDA kernel events, and those of the node histogram."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"events": len(events),
+            "timer_ranges": sum(e.get("name") == "Timer/TrainClassifier"
+                                for e in events),
+            "kernel_events": len(kernels),
+            "hist_accumulate_events": sum("hist_accumulate" in
+                                          e.get("name", "")
+                                          for e in kernels)}
+
+
+def platform_gbdt(torch, df, dev: str) -> dict:
+    """D.1: the pipeline fitted once, its model's transform with telemetry
+    off, then on (the leaf-wise part ran first and warmed the host paths
+    and the kernels; a one-op profile warms the profiler's own start-up);
+    the on run's metrics, spans, launches and trace; its predictions
+    against the off run's, bit for bit. The transform runs the
+    TrainClassifier's fit and transform inside the Profiler and the Timer
+    (the Timer's seconds beside it)."""
+    import os
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch import telemetry
+    from mmlspark_tpu_torch.stages import SummarizeData
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev == "cuda" else [])):
+        torch.ones(1, device=dev).add_(1)
+    model = platform_pipeline("", dev).fit(df)
+    profiler_stage = model.getStages()[-1]
+    runs = {}
+    for mode in ("off", "on"):
+        trace_dir = f"chiprun_out/platform_trace_{mode}"
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        profiler_stage.setTraceDir(trace_dir)
+        telemetry.registry.reset()
+        telemetry.trace.clear()
+        if mode == "on":
+            telemetry.enable()
+        synchronize(torch, dev)
+        t0 = time.perf_counter()
+        scored, launches = counted_call(lambda: model.transform(df))
+        synchronize(torch, dev)
+        seconds = time.perf_counter() - t0
+        telemetry.disable()
+        (trace,) = os.listdir(trace_dir)
+        path = os.path.join(trace_dir, trace)
+        runs[mode] = {"scored": scored, "seconds": seconds,
+                      "timer_s": profiler_stage.getStage()._last_seconds,
+                      "launches": launches, "trace": trace_summary(path, dev),
+                      "trace_bytes": os.path.getsize(path),
+                      "snapshot": telemetry.snapshot(),
+                      "events": telemetry.trace.events()}
+        if mode == "off":
+            shutil.rmtree(trace_dir, ignore_errors=True)
+    on, off = runs["on"], runs["off"]
+    snap = on["snapshot"]
+    one = lambda name, key: snap[name]["series"][0][key]  # noqa: E731
+    metrics = {"iterations": one("mmlspark_gbdt_iterations", "value"),
+               "iter_seconds_count": one("mmlspark_gbdt_iter_seconds",
+                                         "count"),
+               "bin_seconds_count": one("mmlspark_gbdt_bin_seconds",
+                                        "count"),
+               "predict_table_bytes": one(
+                   "mmlspark_gbdt_predict_table_bytes", "value")}
+    spans = nested_spans(on["events"], "gbdt/fit", "gbdt/")
+    check(metrics["iterations"] == PLATFORM_ITERATIONS
+          and metrics["iter_seconds_count"] == PLATFORM_ITERATIONS
+          and metrics["bin_seconds_count"] == 1,
+          f"GBDT metrics with telemetry on: {metrics}")
+    check(metrics["predict_table_bytes"] > 0,
+          "mmlspark_gbdt_predict_table_bytes is 0 after the transform")
+    check(spans["outer"] == 1 and spans["nested"]
+          and spans["names"].get("gbdt/bin") == 1
+          and spans["names"].get("gbdt/iter/step") == PLATFORM_ITERATIONS,
+          f"GBDT spans: {spans}")
+    want = launches_of(node_hist=PLATFORM_ITERATIONS * GBDT_DEPTH,
+                       predict=1)
+    for mode in runs:
+        check_launches(runs[mode]["launches"], want,
+                       f"the pipeline's {mode} run", dev)
+    check(off["events"] == [] and not any(
+        s.get("value", s.get("count")) for fam in off["snapshot"].values()
+        for s in fam["series"]), "telemetry off recorded something")
+    check(on["trace"]["timer_ranges"] >= 1,
+          f"the Chrome trace lacks Timer/TrainClassifier: {on['trace']}")
+    if dev == "cuda":
+        check(on["trace"]["kernel_events"] > 0,
+              f"the Chrome trace holds no CUDA kernel: {on['trace']}")
+    same = same_frames(on["scored"], off["scored"])
+    check(same, "the pipeline's predictions differ with telemetry on")
+    scored = on["scored"]
+    scalar = [c for c in scored.columns if scored.col(c).dtype != object
+              or isinstance(scored.col(c)[0], str)]
+    summary = SummarizeData().transform(scored.select(*scalar))
+    rows = {r["Feature"]: r for r in summary.collect()}
+    check(rows["x3"]["Missing Value Count"] == 0
+          and rows["x3"]["Count"] == df.count(),
+          f"SummarizeData of the scored x3: {rows['x3']}")
+    accuracy = float(np.mean(scored.col("scored_labels")
+                             == scored.col("income")))
+    check(accuracy >= TOL_AUTOML_ACCURACY,
+          f"the pipeline's training accuracy {accuracy}")
+    return {"metrics": metrics, "spans": spans,
+            "launches": {m: runs[m]["launches"] for m in runs},
+            "trace": on["trace"], "trace_bytes": on["trace_bytes"],
+            "bit_identical_predictions": same,
+            "pipeline_transform_s": {m: runs[m]["seconds"] for m in runs},
+            "timer_s": {m: runs[m]["timer_s"] for m in runs},
+            "accuracy": accuracy, "summary_columns": len(rows),
+            "x3_median_fill": float(rows["x3"]["Median"])}
+
+
+def platform_leafwise(torch, df, dev: str) -> dict:
+    """D.2: a leaf-wise fit, then two transforms under the profiler: one
+    gbdt.predict_quant call and one row-6 launch each, FLOPs and bytes
+    counted."""
+    from mmlspark_tpu_torch import LightGBMClassifier, Pipeline, telemetry
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    prep = platform_pipeline("", dev).getStages()[:-1]
+    frame = Pipeline(stages=prep).fit(df).transform(df)
+    model = TrainClassifier(labelCol="income", model=LightGBMClassifier(
+        device=dev, numIterations=PLATFORM_ITERATIONS,
+        numLeaves=GBDT_LEAVES, growthPolicy="leafwise")).fit(frame)
+    telemetry.registry.reset()
+    telemetry.profiler.reset()
+    telemetry.profiler.enable()
+    reports = []
+    try:
+        for _ in range(2):
+            _, launches = counted_call(lambda: model.transform(frame))
+            rep = telemetry.profiler.report()["functions"].get(
+                "gbdt.predict_quant", {})
+            reports.append({"launches": launches, **rep})
+    finally:
+        telemetry.profiler.disable()
+        telemetry.disable()
+    compiles = sum(s["value"] for s in telemetry.snapshot()[
+        "mmlspark_profiler_compiles"]["series"]
+        if s["labels"]["fn"] == "gbdt.predict_quant")
+    for r in reports:
+        check_launches(r["launches"], launches_of(predict_lw=1),
+                       "a profiled leaf-wise transform", dev)
+        if dev == "cuda":
+            check(r.get("calls") == 1 and r["flops_per_call"] > 0
+                  and r["bytes_per_call"] > 0,
+                  f"gbdt.predict_quant's profile of a transform: {r}")
+    return {"transforms": reports, "predict_quant_signatures": compiles}
+
+
+def train_step_flops(cfg: dict, batch: int, seq: int) -> float:
+    """The analytic FLOPs of one training step of the transformer: 6 x the
+    dense parameters x the tokens (each block's qkv, proj, fc1 and fc2,
+    and the head on the pooled rows); remat's second forward of each
+    block, which stops before fc2 (torch's non-reentrant checkpoint
+    recomputes until every tensor the backward saved is back, and nothing
+    saved needs fc2's output); the attention forward, twice under remat,
+    and the dq and dk/dv backward, from attention_bound_ms and
+    attention_bwd_bounds."""
+    d, L, C = cfg["d_model"], cfg["layers"], cfg["num_classes"]
+    H = cfg["heads"]
+    hidden = cfg["mlp_ratio"] * d
+    tokens = batch * seq
+    block = 2.0 * tokens * (3 * d * d + d * d + 2 * d * hidden)
+    fc2 = 2.0 * tokens * hidden * d
+    remat = bool(cfg.get("remat"))
+    fwd = attention_bound_ms(batch, H, seq, seq, d // H, cfg["causal"],
+                             "bfloat16")["flops"]
+    bwd = attention_bwd_bounds(batch, H, seq, seq, d // H, cfg["causal"],
+                               "bfloat16")
+    per_layer = (3 * block + (block - fc2 if remat else 0.0)
+                 + fwd * (2 if remat else 1)
+                 + bwd["dq"]["flops"] + bwd["dkv"]["flops"])
+    return L * per_layer + 6.0 * batch * d * C
+
+
+def platform_training(torch, dev: str) -> dict:
+    """D.3: the training slice at PLATFORM_LAYERS layers, one step a
+    dispatch: a fit with profile=True and sloConfig; two clean fits; a fit
+    whose 4th step faults once and is retried."""
+    from mmlspark_tpu_torch import DataFrame, TorchLearner, telemetry
+    from mmlspark_tpu_torch.resilience import faults
+    cfg = dict(TRAIN_CFG, layers=PLATFORM_LAYERS)
+    rng = np.random.default_rng(SEED + 2)
+    tokens = rng.integers(0, cfg["vocab_size"], size=(TRAIN_ROWS, SEQ),
+                          dtype=np.int32)
+    labels = rng.integers(0, cfg["num_classes"], size=TRAIN_ROWS,
+                          dtype=np.int32)
+    df = DataFrame({"tokens": tokens, "label": labels})
+
+    def learner(**kw):
+        return TorchLearner(featuresCol="tokens", modelConfig=cfg,
+                            optimizer="adam", learningRate=1e-3,
+                            batchSize=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                            seed=SEED, device=dev, stepsPerDispatch=1, **kw)
+
+    telemetry.registry.reset()
+    telemetry.profiler.reset()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    profiled = learner(profile=True, sloConfig={
+        "stepTimeBudget": PLATFORM_STEP_BUDGET_S, "windows": [5.0, 30.0]})
+    try:
+        t0 = time.perf_counter()
+        model, launches = counted_call(lambda: profiled.fit(df))
+        fit_s = time.perf_counter() - t0
+        peak_now = (torch.cuda.max_memory_allocated() if dev == "cuda"
+                    else None)
+        rep = telemetry.profiler.report()
+        snap = telemetry.snapshot()
+    finally:
+        telemetry.profiler.disable()
+    fn = rep["functions"]["trainer.scan_epoch"]
+    steps = model._fit_stats["steps_per_epoch"] * TRAIN_EPOCHS
+    step_count = snap["mmlspark_trainer_step_seconds"]["series"][0]["count"]
+    analytic = train_step_flops(cfg, TRAIN_BATCH, SEQ)
+    flops_err = abs(fn["flops_per_call"] - analytic) / analytic
+    slo = profiled._last_slo_report
+    L = cfg["layers"]
+    check_launches(launches, launches_of(fwd=L * steps * 2, dq=L * steps,
+                                         dkv=L * steps),
+                   "the profiled fit", dev)
+    check(step_count == steps and fn["calls"] == steps
+          and fn["compiles"] == 1,
+          f"{step_count} step-time observations and {fn['calls']} profiled "
+          f"calls ({fn['compiles']} signatures) for {steps} steps")
+    check("fit-step-time" in slo["objectives"],
+          f"the fit's SLO report: {slo}")
+    if dev == "cuda":
+        check(flops_err <= TOL_PLATFORM_FLOPS,
+              f"profiled FLOPs of a step {fn['flops_per_call']:.6g} vs "
+              f"analytic {analytic:.6g} ({flops_err:.3%})")
+        check(rep["live_buffer_peak_bytes"] == peak_now,
+              f"the memory peak gauge {rep['live_buffer_peak_bytes']} vs "
+              f"max_memory_allocated {peak_now}")
+
+    def fit_once(spec=None):
+        telemetry.registry.reset()
+        if spec:
+            faults.configure(spec, seed=0)
+        try:
+            m = learner().fit(df)
+            plan = faults.snapshot()
+        finally:
+            faults.clear()
+        retries = sum(s["value"] for s in telemetry.snapshot()[
+            "mmlspark_retry_attempts_total"]["series"]
+            if s["labels"]["policy"] == "trainer.step")
+        return m, plan, retries
+
+    telemetry.enable()
+    try:
+        clean_a, _, _ = fit_once()
+        clean_b, _, _ = fit_once()
+        faulted, plan, retries = fit_once(PLATFORM_FAULT)
+    finally:
+        telemetry.disable()
+
+    def gaps(a, b):
+        pa, pb = a.getModelParams(), b.getModelParams()
+        return {"loss": abs(a._final_loss - b._final_loss),
+                "params": max(float((pa[k] - pb[k]).abs().max())
+                              for k in pa)}
+    clean = gaps(clean_a, clean_b)
+    retry = {k: min(gaps(faulted, clean_a)[k], gaps(faulted, clean_b)[k])
+             for k in clean}
+    check(plan["trainer.step"][0]["injected"] == 1 and retries == 1,
+          f"the fault plan {plan} and {retries} retries")
+    check(all(retry[k] <= 2 * clean[k] for k in clean),
+          f"the retried fit is {retry} from the clean fits, which are "
+          f"{clean} apart")
+    return {"layers": L, "steps": steps, "launches": launches,
+            "fit_s": fit_s, "flops_per_step": fn["flops_per_call"],
+            "analytic_flops_per_step": analytic, "flops_rel_err": flops_err,
+            "bytes_per_step": fn["bytes_per_call"],
+            "achieved_tflops": fn["achieved_flops_per_sec"] / 1e12,
+            "roofline_share": fn["roofline_utilization"],
+            "peak_flops": fn["peak_flops"],
+            "last_step_s": fn["last_call_seconds"],
+            "count_s": fn["compile_seconds"],
+            "step_seconds_count": step_count,
+            "memory_peak_gauge": rep["live_buffer_peak_bytes"],
+            "max_memory_allocated": peak_now,
+            "slo": {k: {kk: vv for kk, vv in v.items()
+                        if isinstance(vv, (int, float, str, bool))}
+                    for k, v in slo["objectives"].items()},
+            "slo_breached": slo["breached"],
+            "fault": PLATFORM_FAULT, "retries": retries,
+            "clean_gap": clean, "retry_gap": retry,
+            "final_loss": {"clean_a": clean_a._final_loss,
+                           "clean_b": clean_b._final_loss,
+                           "retried": faulted._final_loss}}
+
+
+def phase_platform(torch, env, dev="cuda"):
+    """The stages, telemetry, profiler and fault base on the GBDT and
+    training paths: the profiled leaf-wise transforms, the pipeline with
+    telemetry off and on, the profiled and faulted training fits; returns
+    the phase's launches."""
+    from mmlspark_tpu_torch import telemetry
+    t_phase = time.perf_counter()
+    df = platform_frame()
+    parts = {"frame": time.perf_counter() - t_phase}
+    try:
+        t0 = time.perf_counter()
+        leafwise = platform_leafwise(torch, df, dev)
+        parts["leafwise"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gbdt = platform_gbdt(torch, df, dev)
+        parts["pipeline"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        training = platform_training(torch, dev)
+        parts["training"] = time.perf_counter() - t0
+    finally:
+        telemetry.disable()
+        telemetry.profiler.disable()
+    emit({"phase": "platform", "rows": df.count(),
+          "nan_share_x3": PLATFORM_NAN_SHARE, "gbdt_pipeline": gbdt,
+          "leafwise_profiled": leafwise, "training": training,
+          "gpu": env.gpu_name_and_power_limit(), "parts_s": parts,
+          "seconds": time.perf_counter() - t_phase})
+    return {"gbdt": gbdt["launches"]["on"],
+            "leafwise": [r["launches"] for r in leafwise["transforms"]],
+            "training": training["launches"]}
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -3129,7 +3564,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
-          "vision_train", "automl_tabular", "automl_text")
+          "vision_train", "automl_tabular", "automl_text", "platform")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -3145,6 +3580,7 @@ PHASE_FNS = {
     "vision_train": phase_vision_train,
     "automl_tabular": phase_automl_tabular,
     "automl_text": phase_automl_text,
+    "platform": phase_platform,
 }
 
 
@@ -3206,6 +3642,7 @@ def main(argv=None) -> int:
           f"{vision_launches}")
     automl = phase_automl_tabular(torch, env)
     phase_automl_text(torch, env)
+    phase_platform(torch, env)
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],

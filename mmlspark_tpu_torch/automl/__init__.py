@@ -1,7 +1,7 @@
 """AutoML stages of the port: TrainClassifier/TrainRegressor, Featurize,
 ValueIndexer, ComputeModelStatistics, FindBestModel and TuneHyperparameters
 (the port of ``mmlspark_tpu/automl``; the fleet tuning backend of
-``trials.py``/``scheduler.py`` is ROADMAP.md Queue 1 item 13). Each name
+``trials.py``/``scheduler.py`` is ROADMAP.md Queue 1 item 13b). Each name
 loads its module on first use."""
 
 _EXPORTS = {

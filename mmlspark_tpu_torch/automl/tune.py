@@ -11,7 +11,7 @@ host-paced streams of short launches, and there 4 threads run
 chip_smoke.py's search ~4.5x slower than 1 (ROADMAP.md Queue 3, measured
 by ``tools/automl_tune_threads.py``). The best setting is refit on the full
 data. Not ported yet: the supervised ``backend="fleet"`` (ASHA
-over ``trials.py``/``scheduler.py``, ROADMAP.md Queue 1 item 13) and the
+over ``trials.py``/``scheduler.py``, ROADMAP.md Queue 1 item 13b) and the
 multi-process search of a process fleet (item 12).
 """
 
@@ -187,7 +187,7 @@ class TuneHyperparameters(Estimator, HasLabelCol):
     seed = IntParam("seed", default=0)
     backend = StringParam("where trials run: 'local' thread pool or the "
                           "supervised 'fleet' ASHA scheduler (not ported "
-                          "yet: ROADMAP.md Queue 1 item 13)",
+                          "yet: ROADMAP.md Queue 1 item 13b)",
                           default="local", choices=("local", "fleet"))
 
     def fit(self, df: DataFrame) -> TuneHyperparametersModel:
@@ -195,7 +195,7 @@ class TuneHyperparameters(Estimator, HasLabelCol):
             raise NotImplementedError(
                 "TuneHyperparameters backend='fleet' (the supervised trial "
                 "fleet over trials.py/scheduler.py) is not ported yet "
-                "(ROADMAP.md Queue 1 item 13)")
+                "(ROADMAP.md Queue 1 item 13b)")
         metric = self.getEvaluationMetric()
         maximize = M.METRIC_MAXIMIZE[metric]
         rng = np.random.default_rng(self.getSeed())

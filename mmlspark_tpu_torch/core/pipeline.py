@@ -19,12 +19,18 @@ import uuid as _uuid
 from .dataframe import DataFrame
 from .params import ComplexParam, Params
 
-# fully-qualified name -> class, for serialization lookup
+# fully-qualified name -> class, for serialization lookup and fuzzing coverage
 STAGE_REGISTRY: dict[str, type] = {}
 
 
 def _qualname(cls: type) -> str:
     return f"{cls.__module__}.{cls.__qualname__}"
+
+
+def registered_stages() -> dict[str, type]:
+    """A copy of the registry: qualified name -> stage class (what the
+    fuzzing coverage gate iterates)."""
+    return dict(STAGE_REGISTRY)
 
 
 def lookup_stage_class(name: str) -> type:

@@ -51,6 +51,7 @@ def _ensure_registry_populated():
     import mmlspark_tpu_torch.ops.image_stages  # noqa: F401
     import mmlspark_tpu_torch.ops.text_stages  # noqa: F401
     import mmlspark_tpu_torch.ops.word2vec  # noqa: F401
+    import mmlspark_tpu_torch.stages  # noqa: F401
 
 
 def _is_tensor(v) -> bool:

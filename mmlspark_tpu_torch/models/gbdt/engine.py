@@ -25,22 +25,59 @@ kernels' plain versions run and binning runs in numpy. Randomness (bagging,
 feature masks, the early-stopping holdout) comes from seeded numpy
 generators in the JAX engine's order, so the draws match it.
 
+Telemetry, under the JAX package's names (nothing is measured while it is
+off): the spans ``gbdt/fit``, ``gbdt/bin``, ``gbdt/iter/step`` (one per
+iteration: the serial engine fuses gradients, the K trees and the raw
+update into one step, as the JAX engine's serial path does; its
+``gbdt/iter/{grad,build,apply}`` spans belong to the sharded builders of
+item 12) and ``gbdt/eval``; the iteration, iteration-time, eval-time and
+bin-time metrics; the predict gauges; ``profiler.wrap(...,
+"gbdt.predict_quant")`` around the quantized predicts; and a device memory
+sample per iteration and per predict while the profiler is on.
+
 Not ported yet, each raising NotImplementedError: a mesh or a
 multi-process fit, level-wise or leaf-wise (ROADMAP item 12),
-``fit_gbdt_elastic`` and the telemetry gauges and spans (item 13), and
-``traced_raw_levelwise`` (item 11).
+``fit_gbdt_elastic`` (item 13b), and ``traced_raw_levelwise`` (item 11).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ... import telemetry
 from ...core.utils import get_logger
 from ...ops import gbdt_kernels as gk
+
+# boosting-loop telemetry (no-ops unless MMLSPARK_TPU_TELEMETRY=1); the
+# spans wait for the step's result, so enabled traces show device time
+_m_iters = telemetry.registry.counter(
+    "mmlspark_gbdt_iterations", "boosting iterations dispatched")
+_m_iter_time = telemetry.registry.histogram(
+    "mmlspark_gbdt_iter_seconds",
+    "wall time per boosting iteration (excl. early-stop eval)")
+_m_eval_time = telemetry.registry.histogram(
+    "mmlspark_gbdt_eval_seconds",
+    "wall time per early-stopping validation eval")
+_m_bin_time = telemetry.registry.histogram(
+    "mmlspark_gbdt_bin_seconds", "feature binning wall time per fit")
+_m_predict_table_bytes = telemetry.registry.gauge(
+    "mmlspark_gbdt_predict_table_bytes",
+    "estimated peak bytes of the per-chunk node-test table during the "
+    "last ensemble predict")
+_m_auto_depthwise = telemetry.registry.counter(
+    "mmlspark_gbdt_auto_depthwise_reroutes",
+    "fits the growthPolicy='auto' heuristic rerouted to depthwise growth")
+_m_predict_bytes_per_row = telemetry.registry.gauge(
+    "mmlspark_gbdt_predict_bytes_per_row",
+    "estimated device-traffic bytes per scored row of the last ensemble "
+    "predict (uint8 bin row + staged node tests + amortized tree "
+    "tables); the quantized kernel path drops the test-table term and "
+    "shrinks the tables to uint8/bf16")
 
 
 class GBDTParams(NamedTuple):
@@ -483,23 +520,27 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
             "parallel/ port: ROADMAP.md Queue 1 item 12")
     if elastic_ctx is not None:
         raise NotImplementedError(
-            "elastic boosted fits wait for the resilience/ port: ROADMAP.md "
-            "Queue 1 item 13")
+            "elastic boosted fits wait for the resilience/ elastic runtime: "
+            "ROADMAP.md Queue 1 item 13b")
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             "multi-process GBDT fits (level-wise or leaf-wise) wait for the "
             "parallel/ port: ROADMAP.md Queue 1 item 12")
-    return _fit_gbdt_impl(x, y, params, sample_weight=sample_weight,
-                          eval_set=eval_set, binned=binned,
-                          device=torch_device(device))
+    n, d = (binned[0].shape if binned is not None else x.shape)
+    with telemetry.trace.span("gbdt/fit", rows=int(n), features=int(d),
+                              objective=params.objective,
+                              iterations=params.num_iterations):
+        return _fit_gbdt_impl(x, y, params, sample_weight=sample_weight,
+                              eval_set=eval_set, binned=binned,
+                              device=torch_device(device))
 
 
 def fit_gbdt_elastic(*args, **kwargs):
     raise NotImplementedError(
-        "fit_gbdt_elastic waits for the resilience/ port: ROADMAP.md Queue 1 "
-        "item 13")
+        "fit_gbdt_elastic waits for the resilience/ elastic runtime: "
+        "ROADMAP.md Queue 1 item 13b")
 
 
 def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
@@ -570,7 +611,10 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     real = slice(None) if sample_weight is None else sample_weight > 0
     if binned is None:
         edges = compute_bin_edges(x[real], p.max_bin)
-        bins = bin_data_auto(x, edges, cat_bins, p.max_bin, device)
+        with _m_bin_time.time(), telemetry.trace.span(
+                "gbdt/bin", rows=n, features=d) as sp:
+            bins = bin_data_auto(x, edges, cat_bins, p.max_bin, device)
+            sp.set_sync(bins)
     else:
         bins = torch.as_tensor(np.asarray(bins_in) if not isinstance(
             bins_in, torch.Tensor) else bins_in).to(device, torch.uint8)
@@ -625,6 +669,7 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
         cat_t = torch.from_numpy(cat_arr.astype(np.float32)).to(device)
         lw_depth = max(0, p.max_depth)     # 0 or -1 = uncapped (LightGBM)
     for it in range(p.num_iterations):
+        t_iter = time.perf_counter() if telemetry.enabled() else 0.0
         if bagging:
             if it % p.bagging_freq == 0:
                 bag_mask = (rng.random(n) < p.bagging_fraction).astype(
@@ -641,35 +686,54 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
             if not keep.any():
                 keep[feat_rng.integers(0, d)] = True
             fm = _to_device(keep.astype(np.float32), device)
-        if leafwise:
-            raw, S, f, t, W, IC, lv, _ = _boost_step_leafwise(
-                bins, bins_t, raw, yj, rm, fm, cat_t, lr_eff, p.alpha,
-                num_leaves=p.num_leaves, n_bins=p.max_bin,
-                lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
-                min_child_weight=p.min_child_weight,
-                min_split_gain=p.min_split_gain, cat_smooth=p.cat_smooth,
-                max_depth=lw_depth, hist_impl=hist_impl, has_cats=has_cats,
-                objective=p.objective, num_class=K, update_raw=not is_rf)
-            feats.append((S, f, t, W, IC))
-        else:
-            raw, f, t, lv, _ = _boost_step_level(
-                bins, bins_t, raw, yj, rm, fm,
-                lr_eff, p.alpha, depth=p.max_depth, n_bins=p.max_bin,
-                lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
-                min_child_weight=p.min_child_weight,
-                min_split_gain=p.min_split_gain, hist_impl=hist_impl,
-                objective=p.objective, num_class=K, update_raw=not is_rf)
-            feats.append(f)
-            thrs.append(t)
-        leaves.append(lv)
+        with telemetry.trace.span(
+                "gbdt/iter/step", tree=it,
+                mode="leafwise" if leafwise else "levelwise") as sp:
+            if leafwise:
+                raw, S, f, t, W, IC, lv, _ = _boost_step_leafwise(
+                    bins, bins_t, raw, yj, rm, fm, cat_t, lr_eff, p.alpha,
+                    num_leaves=p.num_leaves, n_bins=p.max_bin,
+                    lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+                    min_child_weight=p.min_child_weight,
+                    min_split_gain=p.min_split_gain,
+                    cat_smooth=p.cat_smooth, max_depth=lw_depth,
+                    hist_impl=hist_impl, has_cats=has_cats,
+                    objective=p.objective, num_class=K,
+                    update_raw=not is_rf)
+                feats.append((S, f, t, W, IC))
+            else:
+                raw, f, t, lv, _ = _boost_step_level(
+                    bins, bins_t, raw, yj, rm, fm,
+                    lr_eff, p.alpha, depth=p.max_depth, n_bins=p.max_bin,
+                    lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+                    min_child_weight=p.min_child_weight,
+                    min_split_gain=p.min_split_gain, hist_impl=hist_impl,
+                    objective=p.objective, num_class=K,
+                    update_raw=not is_rf)
+                feats.append(f)
+                thrs.append(t)
+            leaves.append(lv)
+            sp.set_sync((raw, lv))
+        if telemetry.enabled():
+            _m_iters.inc()
+            _m_iter_time.observe(time.perf_counter() - t_iter)
+            # per-iteration device memory sample (profiler on only)
+            telemetry.profiler.sample_live_buffers(device, (bins, raw))
         if p.early_stopping_round > 0:
-            raw_val = raw_val + torch.stack(
-                [lw.predict_tree_lw_t(bins_val_t, S[k], f[k], t[k], W[k],
-                                      IC[k], lv[k], has_cats=has_cats)
-                 if leafwise else
-                 _predict_tree_t(bins_val_t, f[k], t[k], lv[k], p.max_depth)
-                 for k in range(K)], dim=1)
+            t_eval = time.perf_counter() if telemetry.enabled() else 0.0
+            with telemetry.trace.span("gbdt/eval", tree=it) as sp:
+                raw_val = raw_val + torch.stack(
+                    [lw.predict_tree_lw_t(bins_val_t, S[k], f[k], t[k],
+                                          W[k], IC[k], lv[k],
+                                          has_cats=has_cats)
+                     if leafwise else
+                     _predict_tree_t(bins_val_t, f[k], t[k], lv[k],
+                                     p.max_depth)
+                     for k in range(K)], dim=1)
+                sp.set_sync(raw_val)
             cur = float(_loss(raw_val, y_val, p.objective, p.alpha))
+            if telemetry.enabled():
+                _m_eval_time.observe(time.perf_counter() - t_eval)
             if cur < best_loss - 1e-9:
                 best_loss, since_best, best_iter = cur, 0, it + 1
             else:
@@ -710,13 +774,38 @@ def _predict_chunk_rows(n: int, table_nodes: int) -> int:
 
 
 def _predict_chunked(bins_t, score_chunk, table_nodes: int) -> torch.Tensor:
-    """Score (d, n) rows in chunks of :func:`_predict_chunk_rows`."""
+    """Score (d, n) rows in chunks of :func:`_predict_chunk_rows`, and
+    record the peak test-table estimate on the telemetry gauge."""
     n = bins_t.shape[1]
     chunk = _predict_chunk_rows(n, table_nodes)
+    _m_predict_table_bytes.set(table_nodes * min(max(n, 1), chunk))
+    telemetry.profiler.sample_live_buffers(bins_t.device, bins_t)
     if n <= chunk:
         return score_chunk(bins_t)
     return torch.cat([score_chunk(bins_t[:, lo:lo + chunk].contiguous())
                       for lo in range(0, n, chunk)], dim=0)
+
+
+def leaf_table_bytes(leaf) -> int:
+    """Stored bytes of a quantized leaf table (the traffic-gauge term):
+    2/leaf for bf16, 1/leaf + the f32 scales for int8."""
+    if isinstance(leaf, tuple):
+        q, scale = leaf
+        return q.nbytes + scale.nbytes
+    return leaf.numel() * 2
+
+
+def _set_predict_traffic_gauge(n: int, d: int, K: int, table_bytes: int,
+                               test_table_nodes: int):
+    if telemetry.enabled() and n:
+        _m_predict_bytes_per_row.set(
+            d + 4 * K + test_table_nodes + table_bytes / n)
+
+
+def _nbytes(*tables) -> int:
+    """Bytes of tensors or arrays (the traffic gauge's table term)."""
+    return int(sum(t.numel() * t.element_size()
+                   for t in map(torch.as_tensor, tables)))
 
 
 def quantize_leaves_int8(leaf: np.ndarray):
@@ -804,12 +893,16 @@ def _predict_quant_levelwise(ens: TreeEnsemble, bins_t, T: int, depth: int,
     feat, thr = feat.to(dev), thr.to(dev)
     leaf_f32 = dequant_leaf(leaf).to(dev)
     K = feat.shape[1]
+    d, n = bins_t.shape
+    _set_predict_traffic_gauge(
+        n, d, K, _nbytes(feat, thr) + leaf_table_bytes(leaf), 0)
     base = torch.from_numpy(np.asarray(ens.base, np.float32)).to(dev)[None]
 
-    def score(part):
+    def run(part):
         return gk.gbdt_predict_quant_levelwise(part, feat, thr, leaf_f32,
                                                depth=depth) + base
-    return _predict_chunked(bins_t, score, bins_t.shape[0] + 4 * K)
+    prof = telemetry.profiler.wrap(run, "gbdt.predict_quant")
+    return _predict_chunked(bins_t, prof, d + 4 * K)
 
 
 def _ens_device(ens, device) -> torch.device:
@@ -853,6 +946,10 @@ def predict_raw(ens, x: np.ndarray, num_iteration: Optional[int] = None,
     threshold = torch.as_tensor(ens.threshold[:T]).to(dev)
     leaf = torch.as_tensor(ens.leaf[:T]).to(dev)
     base = torch.from_numpy(np.asarray(ens.base, np.float32)).to(dev)
+    nodes = 2 ** depth - 1
+    _set_predict_traffic_gauge(bins_t.shape[1], bins_t.shape[0], K,
+                               _nbytes(feature, threshold, leaf),
+                               max(nodes, 1))
 
     def score(part):
         raw = base[None, :].expand(part.shape[1], K).clone()
@@ -861,7 +958,6 @@ def predict_raw(ens, x: np.ndarray, num_iteration: Optional[int] = None,
                 [_predict_tree_t(part, feature[t, k], threshold[t, k],
                                  leaf[t, k], depth) for k in range(K)], dim=1)
         return raw
-    nodes = 2 ** depth - 1
     return _predict_chunked(bins_t, score, max(nodes, 1)).cpu().numpy()
 
 

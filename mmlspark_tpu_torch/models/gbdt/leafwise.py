@@ -395,17 +395,24 @@ def _predict_quant_lw(ens: LeafwiseEnsemble, bins_t, T: int,
     """The quantized scoring path: uint8 tables and bf16 or int8 leaves
     (widened to float32) replayed by the leaf-wise predict kernel in one
     launch per chunk, plus the base score."""
-    from .engine import _predict_chunked, dequant_leaf
+    from ... import telemetry
+    from .engine import (_nbytes, _predict_chunked,
+                         _set_predict_traffic_gauge, dequant_leaf,
+                         leaf_table_bytes)
     dev = bins_t.device
     S, F, Th, leaf = quantize_ensemble_lw(ens, T, leaf_dtype=leaf_dtype)
     S, F, Th = S.to(dev), F.to(dev), Th.to(dev)
     leaf_f32 = dequant_leaf(leaf).to(dev)
     K = F.shape[1]
+    d, n = bins_t.shape
+    _set_predict_traffic_gauge(
+        n, d, K, _nbytes(S, F, Th) + leaf_table_bytes(leaf), 0)
     base = torch.from_numpy(np.asarray(ens.base, np.float32)).to(dev)[None]
 
-    def score(part):
+    def run(part):
         return gk.gbdt_predict_quant_leafwise(part, S, F, Th, leaf_f32) + base
-    return _predict_chunked(bins_t, score, bins_t.shape[0] + 4 * K)
+    prof = telemetry.profiler.wrap(run, "gbdt.predict_quant")
+    return _predict_chunked(bins_t, prof, d + 4 * K)
 
 
 def predict_raw_lw(ens: LeafwiseEnsemble, bins_t,
@@ -446,6 +453,9 @@ def predict_raw_lw(ens: LeafwiseEnsemble, bins_t,
 
     splits = int(ens.split_leaf.shape[2])
     table_nodes = splits if splits <= _TEST_TABLE_MAX_SPLITS else 1
+    from .engine import _nbytes, _set_predict_traffic_gauge
+    _set_predict_traffic_gauge(bins_t.shape[1], bins_t.shape[0], K,
+                               _nbytes(S, F, Th, W, IC, leaf), table_nodes)
     # the categorical test gathers an int64 word per (split, row)
     return _predict_chunked(bins_t, score,
                             table_nodes * (9 if has_cats else 1))

@@ -13,9 +13,12 @@ and their models, dense and wide-sparse features (the top-k columns, and
 under leaf-wise growth the tail bundled into categorical composites by
 EFB, ``efb.py``), save/load, and JAX-fitted ``boosterState`` dicts of
 either kind, which the models take as they are. Not yet, each raising
-NotImplementedError: ``elasticConfig`` (ROADMAP item 13); multi-process
+NotImplementedError: ``elasticConfig`` (ROADMAP item 13b); multi-process
 fits wait for the parallel/ port (item 12). ``capture``/``_fit_captured``
-wait for the core/capture.py port (item 11).
+wait for the core/capture.py port (item 11), and with them the fused fit's
+``gbdt.fused_bin`` profile and ``pipeline/fit_segment`` span. The
+growthPolicy='auto' reroute counts in
+``mmlspark_gbdt_auto_depthwise_reroutes``.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ class _BoosterParams:
                  "serial"))
     seed = IntParam("random seed", default=0)
     elasticConfig = DictParam(
-        "elastic boosted fit (not ported yet: ROADMAP item 13)",
+        "elastic boosted fit (not ported yet: ROADMAP item 13b)",
         default=None)
     maxDenseFeatures = IntParam(
         "sparse inputs wider than this train on the top-k document-"
@@ -106,6 +109,7 @@ class _BoosterParams:
                 "to depthwise growth (balanced 2^%d-leaf trees); set "
                 "growthPolicy='leafwise' for native LightGBM best-first "
                 "trees", n_rows, self._depth())
+            engine._m_auto_depthwise.inc()
         if not leafwise and self.getOrDefault("growthPolicy") == "leafwise":
             log.warning("growthPolicy=leafwise is unavailable with "
                         "feature_parallel; using depthwise growth")
@@ -284,8 +288,8 @@ def _fit_ensemble(params_holder, x, y, objective, num_class=1, alpha=0.9,
                                      n_rows=n_rows)
     if params_holder.getOrDefault("elasticConfig"):
         raise NotImplementedError(
-            "elasticConfig waits for the resilience/ port: ROADMAP.md Queue 1 "
-            "item 13")
+            "elasticConfig waits for the resilience/ elastic runtime: "
+            "ROADMAP.md Queue 1 item 13b")
     return engine.fit_gbdt(x, y, p, mesh=params_holder._mesh(n_rows),
                            binned=binned,
                            device=params_holder.getOrDefault("device"))

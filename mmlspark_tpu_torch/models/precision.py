@@ -1,7 +1,7 @@
 """Mixed-precision training state: dynamic loss scaling for bf16 compute.
 
-The port of ``mmlspark_tpu/models/precision.py`` (all of it but the
-telemetry gauges, which wait for the port's metrics registry). The model
+The port of ``mmlspark_tpu/models/precision.py``, its loss-scale gauge and
+skipped-steps counter included. The model
 runs its matmuls in bfloat16 over float32 master params (models/modules.py);
 ``TorchLearner(precision="bf16_mixed")`` adds the dynamic-loss-scale
 recurrence:
@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import telemetry
+
 #: trainer precision modes (the ``TorchLearner.precision`` param domain)
 MODES = ("f32", "bf16", "bf16_mixed")
 
@@ -37,6 +39,16 @@ GROWTH_FACTOR = 2.0
 BACKOFF_FACTOR = 0.5
 MIN_SCALE = 1.0
 MAX_SCALE = 2.0 ** 24       # leaves f32 headroom above any sane loss
+
+_m_loss_scale = telemetry.registry.gauge(
+    "mmlspark_trainer_loss_scale",
+    "current dynamic loss scale of a precision='bf16_mixed' fit "
+    "(observed at epoch boundaries — the step itself never syncs)")
+_m_skipped_steps = telemetry.registry.counter(
+    "mmlspark_trainer_skipped_steps",
+    "optimizer steps skipped by the dynamic loss scaler because the "
+    "unscaled gradients contained a non-finite value (each skip also "
+    "backs the scale off)")
 
 
 class ScaleState(NamedTuple):
@@ -172,3 +184,19 @@ def make_mixed_step_body(compute_loss, tx, grad_clip: float = 0.0):
 def apply_updates(params: dict, updates: dict) -> dict:
     """``optax.apply_updates``: p + u, in p's dtype."""
     return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def observe_scale_state(state, prev_skipped: int) -> int:
+    """Epoch-boundary telemetry flush: set the loss-scale gauge, count
+    newly skipped steps, return the new cumulative skip count. It reads
+    the device only while telemetry is on — the per-step loop never
+    waits on the scale state."""
+    if state is None:
+        return prev_skipped
+    if telemetry.enabled():
+        host = scale_state_to_host(state)
+        _m_loss_scale.set(host["scale"])
+        if host["skipped"] > prev_skipped:
+            _m_skipped_steps.inc(host["skipped"] - prev_skipped)
+        return host["skipped"]
+    return prev_skipped

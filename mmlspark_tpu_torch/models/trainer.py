@@ -28,11 +28,22 @@ host once per epoch, and a skipped bf16_mixed step is selected away on the
 device. It runs on ``device`` ("cuda" by default) and raises where there
 is no card; the tests ask for "cpu".
 
+Telemetry, under the JAX package's names (nothing is measured while it is
+off): the spans ``fit``, ``fit/epoch``, ``fit/step`` (one per dispatch:
+a window of ``stepsPerDispatch`` steps on the scan path, one step on the
+feed path), ``fit/upload`` and ``fit/prefetch``; the step-time histogram,
+rows/s gauge, new-signature counter and transfer-bytes counter; the
+loss-scale gauge and skipped-steps counter of bf16_mixed. Each dispatch
+runs under ``_STEP_RETRY``, retried once on a transient error, with the
+``trainer.step`` fault site as its first statement. ``profile=True``
+routes each dispatch through ``telemetry.profiler`` and ``sloConfig``
+evaluates SLOs over the fit's step times.
+
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item when set away from their defaults: tensor/sequence/expert/pipeline
-parallelism, elastic training, checkpoints (``checkpointDir``), SLO
-sessions (``sloConfig``) and the device profiler (``profile``); also
-``fitStream`` and ``fitStreamCaptured``.
+parallelism (item 12), elastic training (item 13b) and checkpoints
+(``checkpointDir``, item 4); also ``fitStream`` and
+``fitStreamCaptured``.
 """
 
 from __future__ import annotations
@@ -49,6 +60,9 @@ from ..core.params import (BooleanParam, DictParam, FloatParam, IntParam,
                            ListParam, StringParam)
 from ..core.pipeline import Estimator
 from ..core.utils import get_logger
+from .. import telemetry
+from ..resilience import faults
+from ..resilience.policy import RetryPolicy
 from . import precision as prec
 from .modules import (TOKEN_MODELS, Conv2d, Dense, Embed, FrozenAffine,
                       GroupNorm, LayerNorm, build_model, sized_for)
@@ -56,6 +70,46 @@ from .torch_model import (TorchModel, _prep_input, _token_matrix,
                           full_precision_matmuls)
 
 log = get_logger("trainer")
+
+# runtime telemetry (off-by-default no-ops; MMLSPARK_TPU_TELEMETRY=1)
+_m_step_time = telemetry.registry.histogram(
+    "mmlspark_trainer_step_seconds",
+    "wall time per optimizer dispatch (one step on the feed path, a "
+    "stepsPerDispatch window on the scan path)")
+_m_rows_per_sec = telemetry.registry.gauge(
+    "mmlspark_trainer_rows_per_sec",
+    "training throughput over the last epoch (rows == imgs for image fits)")
+_m_recompiles = telemetry.registry.counter(
+    "mmlspark_trainer_recompiles",
+    "train-step dispatches whose abstract (shape, dtype) signature was "
+    "not seen before in this process")
+_m_transfer_bytes = telemetry.registry.counter(
+    "mmlspark_trainer_transfer_bytes",
+    "host->device bytes shipped by the trainer (epoch uploads + per-step "
+    "batch feeds)")
+
+#: abstract-shape signatures already dispatched (new-signature detection)
+_seen_step_sigs: set = set()
+
+#: retry-once-on-transient around each dispatched optimizer step (injected
+#: ``trainer.step`` faults, transient device or transport errors). The
+#: injection site fires BEFORE the step, and the step computes its new
+#: params and optimizer state out of place, so a retried attempt starts
+#: from the unchanged old ones; a fatal error (bad model code) classifies
+#: non-transient and raises at once.
+_STEP_RETRY = RetryPolicy(name="trainer.step", max_attempts=2,
+                          base_delay=0.05, max_delay=0.25)
+
+
+def _note_step_signature(tag: str, *arrays):
+    """Count a new signature when this (tag, shapes, dtypes) is unseen —
+    the key a compiled step would be cached on, observed host-side."""
+    sig = (tag,) + tuple((tuple(np.shape(a)), str(getattr(a, "dtype",
+                                                          type(a))))
+                         for a in arrays)
+    if sig not in _seen_step_sigs:
+        _seen_step_sigs.add(sig)
+        _m_recompiles.inc()
 
 
 # ---------------------------------------------------------------- optimizers
@@ -337,9 +391,8 @@ class TorchLearner(Estimator):
     """Neural-net training on one device (the port of ``TpuLearner``).
 
     Params mirror the JAX package's; ``device`` is the port's own. The
-    parallelism, elastic, checkpoint, SLO and profiler Params are kept so a
-    saved stage round-trips, and raise at fit time away from their
-    defaults."""
+    parallelism, elastic and checkpoint Params are kept so a saved stage
+    round-trips, and raise at fit time away from their defaults."""
 
     featuresCol = StringParam("features column (token ids for the "
                               "transformer)", default="features")
@@ -402,10 +455,10 @@ class TorchLearner(Estimator):
         "raise when the epoch loss goes NaN/inf instead of training on "
         "garbage", default=True)
     stepsPerDispatch = IntParam(
-        "optimizer steps per dispatch on the scan path (0 = whole epoch); "
-        "kept so a saved stage round-trips. The port's steps are eager "
-        "launches, so every value trains alike until the scan path is "
-        "captured as a CUDA graph", default=0, min=0)
+        "optimizer steps per dispatch on the scan path (0 = whole epoch): "
+        "the unit of the fit/step span, the step-time histogram, the "
+        "retry and the profiler. The port's steps are eager launches, so "
+        "every value trains alike", default=0, min=0)
     deviceDataCap = IntParam(
         "bytes of epoch data kept device-resident before the per-step "
         "host-feed path takes over; 0 = half the card's memory (8 GiB on "
@@ -418,10 +471,15 @@ class TorchLearner(Estimator):
         "host batches prepared and copied ahead of the step consuming them "
         "(feed path). 2 = double buffering; 0 = synchronous. The loss "
         "trajectory is bit-identical either way", default=2, min=0)
-    profile = BooleanParam("device-profile this fit; not ported yet",
-                           default=False)
+    profile = BooleanParam(
+        "device-profile this fit: FLOPs and bytes per dispatch (counted "
+        "once for each new signature), achieved-FLOP/s and roofline "
+        "gauges, and device memory sampling (telemetry.profiler). Enables "
+        "telemetry and waits for each dispatch's stream — measurement "
+        "mode, not the production default", default=False)
     elastic = BooleanParam("run fit through the elastic training runtime; "
-                           "not ported yet", default=False)
+                           "not ported yet (ROADMAP item 13b)",
+                           default=False)
     elasticHosts = IntParam("elastic failure domains (needs elastic)",
                             default=0, min=0)
     elasticMinHosts = IntParam("elastic survivors to keep training (needs "
@@ -434,8 +492,14 @@ class TorchLearner(Estimator):
                                default=0, min=0)
     stragglerEvictAfter = IntParam("elastic straggler eviction (needs "
                                    "elastic)", default=0, min=0)
-    sloConfig = DictParam("SLO config evaluated during the fit; not ported "
-                          "yet", default=None)
+    sloConfig = DictParam(
+        "declarative SLO config evaluated DURING this fit "
+        "(telemetry.slo): either a full {'objectives': [...], "
+        "'interval': s} document, or the {'stepTimeBudget': seconds, "
+        "'windows': [fast_s, slow_s]} shorthand for a mean-step-time "
+        "objective over mmlspark_trainer_step_seconds. Enables telemetry "
+        "and a time-series sampler for the fit; the final per-objective "
+        "state lands on the learner as _last_slo_report", default=None)
     device = StringParam(
         "torch device to train on: 'cuda' (default), 'cuda:N' or 'cpu'. "
         "Asking for CUDA where there is none raises; nothing falls back",
@@ -448,14 +512,12 @@ class TorchLearner(Estimator):
             if self.getOrDefault(p) > 1:
                 raise _not_ported(f"{p} > 1 (the port's parallel/ slice)", 12)
         if self.getElastic():
-            raise _not_ported("elastic training", 13)
+            raise NotImplementedError(
+                "elastic training is not ported yet (ROADMAP.md Queue 1 "
+                "item 13b)")
         if self.getCheckpointDir():
             raise _not_ported("checkpoints and bit-exact resume "
                               "(checkpointDir)", 4)
-        if self.getSloConfig() is not None:
-            raise _not_ported("SLO sessions (sloConfig)", 13)
-        if self.getProfile():
-            raise _not_ported("the device profiler (profile)", 13)
 
     def _device(self) -> torch.device:
         return resolve_device(self.getDevice(), "TorchLearner")
@@ -494,9 +556,68 @@ class TorchLearner(Estimator):
              else y.astype(np.float32))
         return x, y
 
+    def _slo_session(self):
+        """Fit-scoped SLO evaluation (the ``sloConfig`` param): a private
+        time-series sampler and SLOEngine run for the duration of the fit,
+        and the final per-objective verdicts land on
+        ``self._last_slo_report``. A context manager yielding the engine
+        (None when the param is unset)."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def session():
+            cfg = self.getSloConfig()
+            if not cfg:
+                yield None
+                return
+            from ..telemetry.slo import SLOEngine
+            from ..telemetry.timeseries import TimeSeriesSampler
+            cfg = dict(cfg)
+            if "objectives" not in cfg:
+                # shorthand: a mean-step-time budget over the trainer's
+                # step histogram
+                budget = float(cfg.get("stepTimeBudget", 0) or 0)
+                if budget <= 0:
+                    raise ValueError(
+                        "sloConfig needs an 'objectives' list or a "
+                        "positive 'stepTimeBudget'")
+                cfg = {"objectives": [{
+                    "name": "fit-step-time", "kind": "step_time",
+                    "hist": "mmlspark_trainer_step_seconds",
+                    "budget_s": budget,
+                    "windows": cfg.get("windows", [5.0, 30.0]),
+                    "burn_threshold": cfg.get("burnThreshold", 1.0)}],
+                    "interval": cfg.get("interval", 0.25)}
+            interval = float(cfg.get("interval") or 0.25)
+            sampler = TimeSeriesSampler(interval=interval)
+            engine = SLOEngine.from_config(cfg, sampler=sampler)
+            sampler.start(interval)   # also enables telemetry
+            engine.start()
+            try:
+                yield engine
+            finally:
+                engine.stop()
+                sampler.stop()
+                sampler.tick()        # final sample + verdict pass
+                final = engine.evaluate()
+                breached = sorted(engine.breached_ever())
+                self._last_slo_report = {"objectives": final,
+                                         "breached": breached}
+                if breached:
+                    telemetry.flight.note("slo/fit_summary",
+                                          breached=",".join(breached))
+                    log.warning("fit SLO summary: objective(s) %s "
+                                "breached their budget", breached)
+
+        return session()
+
     # ---- training ----
     def fit(self, df: DataFrame) -> TorchModel:
         self._refuse_unported()
+        with self._slo_session():
+            return self._fit(df)
+
+    def _fit(self, df: DataFrame) -> TorchModel:
         dev = self._device()
         cfg = self._cfg_with_precision(dict(self.getModelConfig()))
         x, y = self._prepare_data(df, cfg)
@@ -532,10 +653,21 @@ class TorchLearner(Estimator):
         state = (params, opt_state, scale_state)
         scan = x.nbytes + y.nbytes <= data_cap
         run = self._run_epochs_scan if scan else self._run_epochs
-        with full_precision_matmuls(self.getPrecision() == "f32"):
+        profile = self.getProfile()
+        if profile:
+            telemetry.profiler.enable()
+        path = "scan" if scan else "feed"
+        with full_precision_matmuls(self.getPrecision() == "f32"), \
+                telemetry.trace.span("fit", model=cfg.get("type"), rows=n,
+                                     path=path):
             state, stats = run(x, y, n, bs, steps, order_rng=rng_np,
-                               dev=dev, step=step, state=state)
-        stats["path"] = "scan" if scan else "feed"
+                               dev=dev, step=step, state=state,
+                               profile=profile)
+        if profile:
+            # the fit's device memory peak, read after its last step
+            telemetry.profiler.sample_live_buffers(dev, state)
+        stats["path"] = path
+        stats.pop("skipped_seen", None)   # _finish_epoch's telemetry cursor
         if mixed:
             stats["scale_state"] = prec.scale_state_to_host(state[2])
         return self._package_model(cfg, state[0], stats)
@@ -559,12 +691,17 @@ class TorchLearner(Estimator):
     def fitStreamCaptured(self, batches_fn, plan) -> TorchModel:
         raise _not_ported("fitStreamCaptured (fit-side capture)", 11)
 
-    def _finish_epoch(self, epoch: int, loss, stats: dict, t0: float):
-        """Epoch end: the one host read of the loss, and the divergence
-        halt."""
+    def _finish_epoch(self, epoch: int, loss, stats: dict, t0: float,
+                      rows: int, scale_state):
+        """Epoch end: the one host read of the loss, the epoch's telemetry
+        (rows/s, the loss scaler's state) and the divergence halt."""
         last = float(loss)
+        seconds = time.perf_counter() - t0
         stats["epoch_losses"].append(last)
-        stats["epoch_seconds"].append(time.perf_counter() - t0)
+        stats["epoch_seconds"].append(seconds)
+        _m_rows_per_sec.set(rows / max(seconds, 1e-9))
+        stats["skipped_seen"] = prec.observe_scale_state(
+            scale_state, stats.get("skipped_seen", 0))
         log.info("epoch %d loss %.4f", epoch, last)
         if self.getHaltOnNonFinite() and not np.isfinite(last):
             raise RuntimeError(
@@ -572,11 +709,13 @@ class TorchLearner(Estimator):
                 f"(lr={self.getLearningRate()})")
 
     def _run_epochs(self, x, y, n, bs, steps, *, order_rng, dev, step,
-                    state):
+                    state, profile=False):
         """The per-step feed path: one permutation per epoch, bs rows per
         step with cyclic wrap, staged ``prefetchDepth`` steps ahead."""
         from ..parallel.prefetch import prefetched
         wb = torch.ones(bs, dtype=torch.float32, device=dev)  # every row real
+        if profile:
+            step = telemetry.profiler.wrap(step, "trainer.step")
 
         def produce():
             for epoch in range(self.getEpochs()):
@@ -584,28 +723,42 @@ class TorchLearner(Estimator):
                          else np.arange(n))
                 for s in range(steps):
                     idx = order[(s * bs + np.arange(bs)) % n]
-                    yield (epoch, s, _to_device(x[idx], dev),
-                           _to_device(y[idx], dev))
+                    xh, yh = x[idx], y[idx]
+                    if telemetry.enabled():
+                        _note_step_signature("feed", xh, yh)
+                        _m_transfer_bytes.inc(xh.nbytes + yh.nbytes)
+                    yield (epoch, s, _to_device(xh, dev),
+                           _to_device(yh, dev))
 
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "steps_per_epoch": steps, "batch_rows": bs}
         params, opt_state, scale_state = state
         it = prefetched(produce, depth=self.getPrefetchDepth(),
-                        name="fit-feed")
+                        name="fit-feed", span="fit/prefetch")
         t0 = time.perf_counter()
         try:
             for epoch, s, xb, yb in it:
-                params, opt_state, scale_state, loss = step(
-                    params, opt_state, scale_state, xb, yb, wb)
+                t_step = time.perf_counter()
+                with telemetry.trace.span("fit/step", epoch=epoch,
+                                          step=s) as sp:
+                    def dispatch(_a, p=params, o=opt_state,
+                                 ss=scale_state, xb=xb, yb=yb):
+                        faults.inject("trainer.step")
+                        return step(p, o, ss, xb, yb, wb)
+                    params, opt_state, scale_state, loss = \
+                        _STEP_RETRY.run(dispatch)
+                    sp.set_sync(loss)
+                _m_step_time.observe(time.perf_counter() - t_step)
                 if s == steps - 1:
-                    self._finish_epoch(epoch, loss, stats, t0)
+                    self._finish_epoch(epoch, loss, stats, t0, steps * bs,
+                                       scale_state)
                     t0 = time.perf_counter()
         finally:
             it.close()
         return (params, opt_state, scale_state), stats
 
     def _run_epochs_scan(self, x, y, n, bs, steps, *, order_rng, dev, step,
-                         state):
+                         state, profile=False):
         """The device-resident path: the epoch (padded to ``steps * bs``
         rows, pad rows weight 0, plus a bs-row wrap margin) lives on the
         device, and each step is a window of it."""
@@ -625,13 +778,33 @@ class TorchLearner(Estimator):
         w_all = np.zeros(n_pad, dtype=np.float32)
         w_all[:n] = 1.0
 
-        def upload(a):
+        def margin(a):
             ap = _wrap_rows(a, n_pad)
             return _to_device(np.concatenate([ap, ap[:bs]], axis=0), dev)
 
+        def upload(*host_arrs):
+            nbytes = int(sum(a.nbytes for a in host_arrs))
+            if telemetry.enabled():
+                _m_transfer_bytes.inc(nbytes)
+            with telemetry.trace.span("fit/upload", bytes=nbytes):
+                return tuple(margin(a) for a in host_arrs)
+
+        def run_window(p, o, ss, x_dev, y_dev, w_dev, window):
+            """One dispatch: eager steps over windows of the resident
+            epoch, the state never leaving the device."""
+            loss = None
+            for s0 in window:
+                p, o, ss, loss = step(p, o, ss, x_dev[s0:s0 + bs],
+                                      y_dev[s0:s0 + bs], w_dev[s0:s0 + bs])
+            return p, o, ss, loss
+
+        if profile:
+            run_window = telemetry.profiler.wrap(run_window,
+                                                 "trainer.scan_epoch")
         if not reshuffle:
-            x_dev, y_dev = upload(x), upload(y)
-        w_dev = upload(w_all)
+            x_dev, y_dev = upload(x, y)
+        w_dev = margin(w_all)
+        kpd = self.getStepsPerDispatch() or steps
         base = np.arange(steps, dtype=np.int32) * bs
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "steps_per_epoch": steps, "batch_rows": bs}
@@ -640,7 +813,7 @@ class TorchLearner(Estimator):
             t0 = time.perf_counter()
             if reshuffle:
                 perm = order_rng.permutation(n)
-                x_dev, y_dev = upload(x[perm]), upload(y[perm])
+                x_dev, y_dev = upload(x[perm], y[perm])
                 starts = base
             elif self.getShuffle():
                 starts = ((base[order_rng.permutation(steps)]
@@ -648,11 +821,24 @@ class TorchLearner(Estimator):
                     .astype(np.int32)
             else:
                 starts = base
-            # eager steps over windows of the resident epoch, the state
-            # never leaving the device
-            for o in starts.tolist():
-                params, opt_state, scale_state, loss = step(
-                    params, opt_state, scale_state, x_dev[o:o + bs],
-                    y_dev[o:o + bs], w_dev[o:o + bs])
-            self._finish_epoch(epoch, loss, stats, t0)
+            starts = starts.tolist()
+            with telemetry.trace.span("fit/epoch", epoch=epoch,
+                                      path="scan") as ep_sp:
+                for lo in range(0, steps, kpd):
+                    t_disp = time.perf_counter()
+                    with telemetry.trace.span(
+                            "fit/step", epoch=epoch, first_step=lo,
+                            steps=min(kpd, steps - lo)) as sp:
+                        def dispatch(_a, p=params, o=opt_state,
+                                     ss=scale_state, lo=lo):
+                            faults.inject("trainer.step")
+                            return run_window(p, o, ss, x_dev, y_dev, w_dev,
+                                              starts[lo:lo + kpd])
+                        params, opt_state, scale_state, loss = \
+                            _STEP_RETRY.run(dispatch)
+                        sp.set_sync(loss)
+                    _m_step_time.observe(time.perf_counter() - t_disp)
+                ep_sp.set_sync(loss)
+            self._finish_epoch(epoch, loss, stats, t0, steps * bs,
+                               scale_state)
         return (params, opt_state, scale_state), stats

@@ -17,6 +17,9 @@ All in the JAX package's (B, T, H, D) layout:
   raises; on CPU tensors it runs the plain version.
   ``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` count the
   launches of each.
+* :func:`attention_costs` — the analytic FLOPs and bytes of each kernel,
+  which every launch reports to ``telemetry.profiler`` (the profiler's
+  torch-op counters cannot see a kernel bound through ``ctypes``).
 * :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   — the plain PyTorch versions of the same functions, with the kernels'
   masks, rounding points and lse semantics.
@@ -41,6 +44,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from ..telemetry import profiler
 
 NEG_INF = -1e30
 
@@ -72,6 +77,29 @@ _C_FUNCTIONS_BWD = {
 #: bytes of the bf16 backward's seven tensor maps (q, k, v, dO and out read,
 #: dk and dv written), one ``CUtensorMap`` of 128 bytes each
 _BWD_MAPS_BYTES = 7 * 128
+
+
+def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs the top-left causal mask leaves visible."""
+    if not causal:
+        return Tq * Tk
+    m = min(Tq, Tk)
+    return m * (m + 1) // 2 + max(0, Tq - Tk) * Tk
+
+
+def attention_costs(B, H, Tq, Tk, D, causal, esize) -> dict:
+    """{kernel: (FLOPs, bytes)} of one forward and of the two backward
+    kernels (``esize`` bytes per q/k/v element). The forward does QK^T and
+    PV over the visible pairs (2 FLOP per MAC) and reads q, k, v once and
+    writes out and lse once; dq does three products per visible pair and
+    dk/dv four, both reading q, k, v, dO, lse and D once and writing their
+    gradients once."""
+    pairs = B * H * visible_pairs(Tq, Tk, causal)
+    qkv = esize * B * H * D * (2 * Tq + 2 * Tk)
+    reads = qkv + 2 * 4 * B * H * Tq
+    return {"fwd": (4.0 * D * pairs, qkv + 4 * B * H * Tq),
+            "dq": (6.0 * D * pairs, reads + esize * B * H * Tq * D),
+            "dkv": (8.0 * D * pairs, reads + 2 * esize * B * H * Tk * D)}
 
 
 def _check_qkv(q, k, v):
@@ -253,6 +281,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
             float(scale), _DTYPE_CODE[q.dtype], stream)
     _raise_on(rc, lib, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    profiler.note_kernel(*attention_costs(B, H, Tq, Tk, D, causal,
+                                          q.element_size())["fwd"])
     return out, lse
 
 
@@ -350,6 +380,8 @@ class _BwdLaunch:
                       *_strides(self.v), *_strides(self.do),
                       B, H, Tq, Tk, D, int(bool(causal)), float(scale),
                       _DTYPE_CODE[q.dtype])
+        self.costs = attention_costs(B, H, Tq, Tk, D, causal,
+                                     q.element_size())
 
     def _stream(self):
         return torch.cuda.current_stream(self.device).cuda_stream
@@ -361,6 +393,7 @@ class _BwdLaunch:
                 self._stream())
         _raise_on(rc, self.lib, "flash_attention_bwd (dq)")
         flash_attention_bwd.launches_dq += 1
+        profiler.note_kernel(*self.costs["dq"])
 
     def dkv_kernel(self):
         with torch.cuda.device(self.device):
@@ -369,6 +402,7 @@ class _BwdLaunch:
                 *self.shape, self._stream())
         _raise_on(rc, self.lib, "flash_attention_bwd (dk/dv)")
         flash_attention_bwd.launches_dkv += 1
+        profiler.note_kernel(*self.costs["dkv"])
 
 
 def _wgmma_tile_probe(a, b):

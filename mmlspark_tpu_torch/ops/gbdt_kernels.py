@@ -59,6 +59,8 @@ import threading
 
 import torch
 
+from ..telemetry import profiler
+
 _launch_count_lock = threading.Lock()
 
 
@@ -378,6 +380,9 @@ def mxu_node_histogram(bins_t, node, g, h, *, n_nodes: int,
         bins_t.stride(0), F, n_bins, n_nodes, n_nodes * n_bins,
         (n_nodes, F, n_bins), "mxu_node_histogram")
     _count_launch(mxu_node_histogram)
+    # the profiler's analytic cost: every row taken as live (the most)
+    profiler.note_kernel(2.0 * N * F,
+                         F * N + 12 * N + 8 * n_nodes * F * n_bins)
     return out
 
 
@@ -435,6 +440,7 @@ def histogram_fused(bins, grad, hess, n_bins: int = 256):
         1, bins, None, grad.contiguous(), hess.contiguous(), N,
         bins.stride(0), F, 1, 1, n_bins, (F, n_bins), "histogram_fused")
     _count_launch(histogram_fused)
+    profiler.note_kernel(2.0 * N * F, 4 * N * F + 8 * N + 8 * F * n_bins)
     return out
 
 
@@ -515,6 +521,13 @@ def quant_levelwise_kernel_arithmetic(bins_t, feature, threshold, leaf,
     return out
 
 
+def _predict_bytes(bins_t, out, *tables) -> int:
+    """A predict's least traffic: the bins and the tables read once, the
+    output written once."""
+    return (bins_t.shape[0] * bins_t.shape[1] + out.numel() * 4
+            + sum(x.numel() * x.element_size() for x in tables))
+
+
 def gbdt_predict_quant_levelwise(bins_t, feature, threshold, leaf, *,
                                  depth: int):
     """Quantized level-wise ensemble predict: one launch scores every tree.
@@ -558,6 +571,10 @@ def gbdt_predict_quant_levelwise(bins_t, feature, threshold, leaf, *,
             depth, torch.cuda.current_stream(bins_t.device).cuda_stream)
     _raise_on(rc, lib, "gbdt_predict_quant_levelwise")
     _count_launch(gbdt_predict_quant_levelwise)
+    # a compare per level and an add per (row, tree, class)
+    profiler.note_kernel(float(n) * T * K * (depth + 1),
+                         _predict_bytes(bins_t, out, feature, threshold,
+                                        leaf))
     return out
 
 
@@ -738,6 +755,11 @@ def gbdt_predict_quant_leafwise(bins_t, split_leaf, feature, threshold,
             torch.cuda.current_stream(bins_t.device).cuda_stream)
     _raise_on(rc, lib, "gbdt_predict_quant_leafwise")
     _count_launch(gbdt_predict_quant_leafwise)
+    # the walk's length depends on the data: the profiler takes the most,
+    # a compare per round and an add per (row, tree, class)
+    profiler.note_kernel(float(n) * T * K * (R + 1),
+                         _predict_bytes(bins_t, out, split_leaf, feature,
+                                        threshold, leaf))
     return out
 
 

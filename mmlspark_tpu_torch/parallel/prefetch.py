@@ -1,10 +1,10 @@
 """Bounded asynchronous prefetching: overlap host batch prep + H2D transfer
 with device compute.
 
-The port of ``mmlspark_tpu/parallel/prefetch.py`` without its telemetry
-(queue-depth gauge, stall histograms and spans wait for the port's metrics
-registry, ROADMAP.md Queue 1 item 13). The trainer's feed path is a
-producer/consumer pair: the producer is HOST work (index gather, staging
+The port of ``mmlspark_tpu/parallel/prefetch.py``, with its telemetry (the
+queue-depth gauge, the produce and stall histograms and the optional
+producer span, under the JAX package's names; nothing is measured while
+telemetry is off). The trainer's feed path is a producer/consumer pair: the producer is HOST work (index gather, staging
 into pinned memory, the non-blocking copy to the card) and the consumer is
 the training step. Here the host work for step ``s+1..s+depth`` runs on a
 daemon thread while step ``s`` runs, so the consuming loop receives batches
@@ -36,7 +36,28 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, Union
+import time
+from typing import Callable, Iterable, Iterator, Optional, Union
+
+from .. import telemetry
+from ..telemetry.registry import _state
+
+# prefetch telemetry (off-by-default no-ops; MMLSPARK_TPU_TELEMETRY=1)
+_m_queue_depth = telemetry.registry.gauge(
+    "mmlspark_prefetch_queue_depth",
+    "prefetched items currently produced but not yet consumed")
+_m_produce_time = telemetry.registry.histogram(
+    "mmlspark_prefetch_produce_seconds",
+    "host prep + device copy start per prefetched item (producer thread) "
+    "— the work the prefetcher hides behind device compute")
+_m_producer_stall = telemetry.registry.histogram(
+    "mmlspark_prefetch_producer_stall_seconds",
+    "time the producer spent blocked because `depth` items were already "
+    "outstanding (consumer-bound; harmless)")
+_m_consumer_stall = telemetry.registry.histogram(
+    "mmlspark_prefetch_consumer_stall_seconds",
+    "time the consumer spent waiting for the next prefetched item "
+    "(host-bound; the stall the prefetcher exists to shrink)")
 
 #: queue sentinels (kind tags; unique objects, compared by identity)
 _ITEM, _DONE, _ERROR = object(), object(), object()
@@ -51,11 +72,13 @@ class DevicePrefetcher:
 
     ``depth=0`` is honored by :func:`prefetched`, which returns the plain
     iterator (the synchronous path); ``DevicePrefetcher`` itself requires
-    ``depth >= 1``.
+    ``depth >= 1``. ``span`` names a trace span around each produced item
+    (recorded while telemetry is on).
     """
 
     def __init__(self, source: Union[Iterable, Callable[[], Iterable]],
-                 depth: int = 2, name: str = "prefetch"):
+                 depth: int = 2, name: str = "prefetch",
+                 span: Optional[str] = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.depth = depth
@@ -64,6 +87,7 @@ class DevicePrefetcher:
         #: assert a prefetched run actually ran ahead
         self.items = 0
         self._source = source
+        self._span = span
         # slots acquired BEFORE producing bound produced-but-unconsumed
         # items at exactly `depth`; the queue itself can stay unbounded
         self._slots = threading.Semaphore(depth)
@@ -79,8 +103,11 @@ class DevicePrefetcher:
     # ---- producer (worker thread) ----
     def _acquire_slot(self) -> bool:
         """Blocking slot acquire that stays responsive to close()."""
+        t0 = time.perf_counter() if _state.enabled else 0.0
         while not self._stop.is_set():
             if self._slots.acquire(timeout=0.05):
+                if _state.enabled:
+                    _m_producer_stall.observe(time.perf_counter() - t0)
                 return True
         return False
 
@@ -91,11 +118,23 @@ class DevicePrefetcher:
             while not self._stop.is_set():
                 if not self._acquire_slot():
                     return              # closed while waiting for a slot
-                item = next(it, _DONE)
+                if _state.enabled:
+                    t0 = time.perf_counter()
+                    if self._span:
+                        with telemetry.trace.span(self._span,
+                                                  source=self.name):
+                            item = next(it, _DONE)
+                    else:
+                        item = next(it, _DONE)
+                    if item is not _DONE:
+                        _m_produce_time.observe(time.perf_counter() - t0)
+                else:
+                    item = next(it, _DONE)
                 if item is _DONE:
                     break
                 self.items += 1
                 self._q.put((_ITEM, item))
+                _m_queue_depth.set(self._q.qsize())
         except BaseException as e:       # re-raised at the consumer's next()
             self._q.put((_ERROR, e))
         else:
@@ -108,6 +147,7 @@ class DevicePrefetcher:
     def __next__(self):
         if self._finished:
             raise StopIteration
+        t0 = time.perf_counter() if _state.enabled else 0.0
         while True:
             try:
                 kind, item = self._q.get(timeout=1.0)
@@ -123,6 +163,9 @@ class DevicePrefetcher:
                         f"delivering") from None
         if kind is _ITEM:
             self._slots.release()
+            if _state.enabled:
+                _m_consumer_stall.observe(time.perf_counter() - t0)
+                _m_queue_depth.set(self._q.qsize())
             return item
         self._finished = True
         if kind is _ERROR:
@@ -145,6 +188,7 @@ class DevicePrefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=5.0)
+        _m_queue_depth.set(0)
 
     def __enter__(self) -> "DevicePrefetcher":
         return self
@@ -155,14 +199,15 @@ class DevicePrefetcher:
 
 
 def prefetched(source: Union[Iterable, Callable[[], Iterable]],
-               depth: int = 2, name: str = "prefetch") -> Iterator:
+               depth: int = 2, name: str = "prefetch",
+               span: Optional[str] = None) -> Iterator:
     """``DevicePrefetcher`` when ``depth >= 1``, the plain (synchronous)
     iterator when ``depth == 0`` — the one switch call sites need. The
     returned iterator always supports ``close()`` so consumer ``finally``
     blocks are uniform."""
     if depth <= 0:
         return _SyncIter(iter(source() if callable(source) else source))
-    return DevicePrefetcher(source, depth=depth, name=name)
+    return DevicePrefetcher(source, depth=depth, name=name, span=span)
 
 
 class _SyncIter:

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: ``mmlspark_tpu_torch`` and ``chip_smoke.py``
 import no jax, flax or optax, and nothing of the JAX package — only the
-tests import both. Nor do they import sklearn, pandas or pyarrow when a
-module is imported (the card's machine has none of them): such an import
-may only sit inside the function that needs it (``DataFrame.fromPandas``)."""
+tests import both. Nor do they import sklearn, pandas, pyarrow or
+matplotlib when a module is imported (the card's machine has none of them):
+such an import may only sit inside the function that needs it
+(``DataFrame.fromPandas``, ``plot.confusionMatrix``)."""
 
 import ast
 import json
@@ -16,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mmlspark_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
-NOT_ON_THE_CARD = ("sklearn", "pandas", "pyarrow")
+NOT_ON_THE_CARD = ("sklearn", "pandas", "pyarrow", "matplotlib")
 
 
 def _imported_modules(path: Path) -> set:
@@ -81,6 +82,11 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.automl.train_classifier, "
             "mmlspark_tpu_torch.automl.model_statistics, "
             "mmlspark_tpu_torch.automl.tune, "
+            "mmlspark_tpu_torch.stages, "
+            "mmlspark_tpu_torch.telemetry, "
+            "mmlspark_tpu_torch.resilience, "
+            "mmlspark_tpu_torch.plot, "
+            "mmlspark_tpu_torch.testing.fuzzing, "
             "mmlspark_tpu_torch.core.serialize; "
             "mmlspark_tpu_torch.core.serialize._ensure_registry_populated(); "
             "print(json.dumps(sorted(sys.modules)))")

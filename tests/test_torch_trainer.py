@@ -359,8 +359,7 @@ def test_init_params_shapes_and_distributions():
 
 @pytest.mark.parametrize("param,value", [
     ("tensorParallel", 2), ("sequenceParallel", 2), ("expertParallel", 2),
-    ("pipelineParallel", 2), ("elastic", True), ("checkpointDir", "/ckpt"),
-    ("sloConfig", {"stepTimeBudget": 1.0}), ("profile", True)])
+    ("pipelineParallel", 2), ("elastic", True), ("checkpointDir", "/ckpt")])
 def test_unported_params_raise(param, value):
     df, _ = _frames(rows=8, seed=8)
     learner = TorchLearner(modelConfig=CFG, device="cpu", featuresCol="tokens",
