@@ -223,6 +223,38 @@ Phases, each printing one JSON line:
    to ``max_memory_allocated`` — then two clean fits and one whose 4th
    step faults once (``PLATFORM_FAULT``) and is retried: its loss and
    parameters no further from the clean fits than twice their own gap.
+16. ingest — out-of-core training, checkpoints and the file ingest that
+   feeds them (``INGEST_*``). (a) ``TRAIN_CFG`` at full width through
+   ``TorchLearner.fitStream``: 4 batches of 8 x 4096 tokens and a ragged one
+   of 5 (padded to 8, weight 0) an epoch, 3 epochs; one fit uninterrupted,
+   one with epoch checkpoints killed by ``trainer.step`` faults in epoch 3
+   and refitted on its directory: it resumes from epoch 2's checkpoint and
+   ends on the uninterrupted fit's parameters bit for bit; that
+   directory's newest checkpoint truncated, a refit skips it (counted on
+   ``mmlspark_ckpt_corrupt_total``) and again ends on the same bits. The
+   same 37 rows through ``fit()``'s feed path with async, 4-shard step
+   checkpoints every 2 steps (2 kept), bit-equal to the fit without
+   checkpoints; killed on epoch 2's last step, the refit resumes from the
+   step checkpoint before it, dispatches exactly the 6 steps left and ends
+   on the same bits. Rows 1-3 launch exactly 2 x layers, layers and layers
+   times a dispatched step in every fit. Prints the checkpoint writes,
+   their seconds, the coalesced snapshots and the step time with async
+   checkpoints off and on. (b) bench.py's ResNet-20 (momentum 0.01 / 0.9,
+   bf16) from 24,576 image files of 32 x 32 x 3 (PPM, BMP and, where the
+   native build decodes it, PNG, written by ``io.image``'s encoders) through
+   ``io.loader.device_image_batches`` in batches of 12288 (bucketed to
+   16384 rows by fitStream): every device batch equal to its files' numpy
+   decode bit for bit, the loader's images/s; three fitStream epochs, two
+   clean fits and one killed in epoch 3 and resumed, within twice the two
+   clean fits' gap (relative L2); rows 1-7 launch nothing. (c) bench_gbdt.py's
+   draws at 262,144 rows as a CSV file: ``io.read_csv_matrix`` (the native
+   threaded parser) bit for bit ``np.loadtxt``'s float32 parse, its MB/s;
+   ``LightGBMClassifier(numIterations=20)`` on it launches row 4 exactly 100
+   times and its transform row 5 once, training accuracy >= 0.85. (d)
+   ``native.interleave_f32`` over the 28 columns equal to ``np.stack``. The
+   native runtime (``mmlspark_tpu_torch/native``, built with g++) must have
+   run the loader, the parser and the interleave (``native.calls``), with
+   ``MMLSPARK_TPU_NO_NATIVE`` unset.
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -237,6 +269,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import sys
 import threading
@@ -379,6 +412,26 @@ TOL_TEXT_ACCURACY, TOL_W2V_ACCURACY = 0.85, 0.8
 # one SGNS step on the card against the CPU's (relative L2 of the loss and
 # of each table), and LR on the hashed text against the CPU's (coefficients)
 TOL_SGNS_STEP, TOL_TEXT_LR_COEF = 1e-5, 1e-3
+# the ingest phase; each INGEST_KILL_* is the dispatches that pass before
+# every later one faults. (1) TRAIN_CFG at full width through fitStream: 4
+# batches of 8 x 4096 tokens and a ragged one of 5 an epoch, 3 epochs (5
+# steps an epoch: killed on the 12th dispatch, epoch 3's second step);
+# fit()'s feed path on the same 37 rows, 4 steps of 8 an epoch, a step
+# checkpoint every 2 steps (async, 4 shards, 2 kept), killed on the 8th
+# dispatch, epoch 2's last step. (2) bench.py's ResNet-20 and batch
+# (bench.py:82-99) from 24,576 image files, 2 steps an epoch, 3 epochs,
+# killed on epoch 3's first dispatch; the resumed fit within twice the gap of two clean fits
+# (relative L2 of all parameters; twice, for the spread of that gap when
+# cuDNN's backward is not deterministic). (3) bench_gbdt.py's draws
+# (bench_gbdt.py:15-20) at 262,144 rows as a CSV file into
+# LightGBMClassifier(numIterations=20): depthwise at that row count, 5
+# node histograms a tree and one level-wise predict. (4) 28 float32
+# columns of those rows through interleave_f32.
+INGEST_STREAM_BATCHES, INGEST_RAGGED_ROWS, INGEST_EPOCHS = 4, 5, 3
+INGEST_KILL_STREAM, INGEST_KILL_FEED = 11, 7
+INGEST_IMAGES, INGEST_IMAGE_HW, INGEST_KILL_IMAGES = 24_576, 32, 4
+INGEST_CSV_ROWS, INGEST_GBDT_ITERS = 262_144, 20
+TOL_INGEST_IMAGE_GAP = 2.0
 
 
 def emit(obj):
@@ -3550,6 +3603,384 @@ def phase_platform(torch, env, dev="cuda"):
             "training": training["launches"]}
 
 
+# ------------------------------------------------------------------ ingest
+
+def same_params(a, b) -> bool:
+    """Two fitted models' parameters equal bit for bit."""
+    import torch
+    pa, pb = a.getModelParams(), b.getModelParams()
+    return set(pa) == set(pb) and all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+def params_rel_l2(a, b) -> float:
+    """||a - b||_2 / ||b||_2 over all of two models' parameters."""
+    pa, pb = a.getModelParams(), b.getModelParams()
+    return rel_l2(np.concatenate([pa[k].numpy().ravel() for k in sorted(pa)]),
+                  np.concatenate([pb[k].numpy().ravel() for k in sorted(pb)]))
+
+
+def killed(fit, after: int):
+    """Run ``fit`` with every trainer.step after the first ``after``
+    faulted: the retry is spent and the fit dies there."""
+    from mmlspark_tpu_torch.resilience import faults
+    faults.configure(f"trainer.step:error:1.0:{after}", seed=0)
+    try:
+        fit()
+    except ConnectionError:
+        return
+    finally:
+        faults.clear()
+    check(False, f"faults after dispatch {after} did not stop the fit")
+
+
+def attention_launches(steps: int) -> dict:
+    """Rows 1-3 over ``steps`` transformer steps with remat."""
+    L = TRAIN_CFG["layers"]
+    return launches_of(fwd=2 * L * steps, dq=L * steps, dkv=L * steps)
+
+
+def metric(telemetry, name: str, key: str = "value"):
+    series = telemetry.snapshot()[name]["series"]
+    return series[0][key] if series else 0
+
+
+def ingest_stream(torch, tmp: str, dev: str) -> dict:
+    """(1) The transformer at full width: fitStream killed in epoch 3 and
+    resumed from epoch 2's checkpoint; that directory's newest checkpoint
+    truncated and resumed past; fit()'s feed path with async, sharded step
+    checkpoints killed mid-epoch and resumed from the newest step
+    checkpoint. Every resumed fit ends on the uninterrupted fit's bits."""
+    from mmlspark_tpu_torch import DataFrame, TorchLearner, telemetry
+    rng = np.random.default_rng(SEED + 12)
+    rows = INGEST_STREAM_BATCHES * TRAIN_BATCH + INGEST_RAGGED_ROWS
+    tokens = rng.integers(0, TRAIN_CFG["vocab_size"], size=(rows, SEQ),
+                          dtype=np.int32)
+    labels = rng.integers(0, TRAIN_CFG["num_classes"], size=rows,
+                          dtype=np.int32)
+
+    def stream():
+        for lo in range(0, rows, TRAIN_BATCH):
+            yield tokens[lo:lo + TRAIN_BATCH], labels[lo:lo + TRAIN_BATCH]
+
+    def learner(**kw):
+        return TorchLearner(featuresCol="tokens", modelConfig=TRAIN_CFG,
+                            optimizer="adam", learningRate=1e-3,
+                            batchSize=TRAIN_BATCH, epochs=INGEST_EPOCHS,
+                            seed=SEED, device=dev, **kw)
+
+    per_epoch = INGEST_STREAM_BATCHES + 1
+    out = {"rows": rows, "seq": SEQ, "epochs": INGEST_EPOCHS,
+           "stream_steps_per_epoch": per_epoch}
+    a, la = counted_call(lambda: learner().fitStream(stream))
+    check_launches(la, attention_launches(per_epoch * INGEST_EPOCHS),
+                   "the uninterrupted fitStream", dev)
+    check(all(np.isfinite(a._fit_stats["epoch_losses"])),
+          f"fitStream losses {a._fit_stats['epoch_losses']}")
+    ck = os.path.join(tmp, "stream")
+    _, lb = counted_call(lambda: killed(
+        lambda: learner(checkpointDir=ck).fitStream(stream),
+        INGEST_KILL_STREAM))
+    check_launches(lb, attention_launches(INGEST_KILL_STREAM),
+                   "the killed fitStream", dev)
+    resumer = learner(checkpointDir=ck)
+    check(resumer._latest_checkpoint() == (INGEST_EPOCHS - 2, None),
+          f"the killed stream left {sorted(os.listdir(ck))}")
+    r, lr = counted_call(lambda: resumer.fitStream(stream))
+    check_launches(lr, attention_launches(per_epoch),
+                   "the resumed fitStream", dev)
+    check(same_params(r, a), "the resumed fitStream's parameters differ "
+          "from the uninterrupted fit's")
+    # (c) the newest checkpoint truncated: skipped, counted, and the fit
+    # resumes from the one before
+    newest = os.path.join(ck, f"ckpt_{INGEST_EPOCHS - 1:05d}.msgpack")
+    size = os.path.getsize(newest)
+    with open(newest, "r+b") as f:
+        f.truncate(size // 2)
+    telemetry.enable()
+    telemetry.registry.reset()
+    try:
+        t, lt = counted_call(lambda: learner(checkpointDir=ck)
+                             .fitStream(stream))
+        corrupt = metric(telemetry, "mmlspark_ckpt_corrupt_total")
+    finally:
+        telemetry.disable()
+    check(corrupt >= 1, "the truncated checkpoint was not counted corrupt")
+    check_launches(lt, attention_launches(per_epoch),
+                   "the fit resumed past the truncated checkpoint", dev)
+    check(same_params(t, a), "the fit resumed past the truncated "
+          "checkpoint differs from the uninterrupted fit")
+    out["stream"] = {"launches": {"uninterrupted": la, "killed": lb,
+                                  "resumed": lr, "past_truncated": lt},
+                     "epoch_losses": a._fit_stats["epoch_losses"],
+                     "resumed_bit_exact": True,
+                     "truncated_bytes": [size, size // 2],
+                     "corrupt_counted": corrupt}
+
+    # (b) fit()'s feed path, async sharded step checkpoints
+    df = DataFrame({"tokens": tokens, "label": labels})
+    opts = dict(deviceDataCap=1, checkpointEverySteps=2,
+                asyncCheckpoint=True, checkpointKeepSteps=2,
+                checkpointShards=4)
+    t0 = time.perf_counter()
+    off = learner(deviceDataCap=1).fit(df)
+    t1 = time.perf_counter()
+    on = learner(checkpointDir=os.path.join(tmp, "on"), **opts).fit(df)
+    fit_s = {"off": t1 - t0, "on": time.perf_counter() - t1}
+    check(same_params(on, off), "checkpointing changed the feed fit")
+    per = off._fit_stats["steps_per_epoch"]
+    step_ms = {name: [s / per * 1e3 for s in m._fit_stats["epoch_seconds"]]
+               for name, m in (("off", off), ("on", on))}
+    ck = os.path.join(tmp, "feed")
+    telemetry.enable()
+    telemetry.registry.reset()
+    try:
+        killed(lambda: learner(checkpointDir=ck, **opts).fit(df),
+               INGEST_KILL_FEED)
+        resumer = learner(checkpointDir=ck, **opts)
+        pos = resumer._latest_checkpoint()
+        writes = telemetry.snapshot()["mmlspark_ckpt_write_seconds"]
+        coalesced = metric(telemetry, "mmlspark_ckpt_coalesced_total")
+        shards = metric(telemetry, "mmlspark_ckpt_shards_written_total")
+        telemetry.registry.reset()
+        res, lres = counted_call(lambda: resumer.fit(df))
+        dispatched = metric(telemetry, "mmlspark_trainer_step_seconds",
+                            "count")
+    finally:
+        telemetry.disable()
+    # killed on epoch K // per's last step: its step-1 checkpoint is the
+    # newest
+    check(pos == (INGEST_KILL_FEED // per, 1),
+          f"the killed feed fit's newest checkpoint is {pos}")
+    left = per * INGEST_EPOCHS - pos[0] * per - pos[1] - 1
+    check(dispatched == left, f"the resumed feed fit dispatched "
+          f"{dispatched} steps, {left} were left")
+    check_launches(lres, attention_launches(left), "the resumed feed fit",
+                   dev)
+    check(same_params(res, off), "the resumed feed fit's parameters differ "
+          "from the uninterrupted fit's")
+    series = writes["series"][0] if writes["series"] else {}
+    out["feed"] = {"steps_per_epoch": per, "resumed_from": list(pos),
+                   "steps_left": left, "steps_dispatched": dispatched,
+                   "resumed_launches": lres, "resumed_bit_exact": True,
+                   "ckpt_writes": series.get("count", 0),
+                   "ckpt_write_seconds_sum": series.get("sum", 0.0),
+                   "ckpt_coalesced": coalesced, "ckpt_shards_written": shards,
+                   "step_ms_by_epoch": step_ms, "fit_s": fit_s,
+                   "step_ms_async_off": statistics.median(step_ms["off"][1:]),
+                   "step_ms_async_on": statistics.median(step_ms["on"][1:])}
+    return out
+
+
+# the numpy decode of the files ingest_images writes (PPM, 24-bit BMP and
+# 8-bit RGB PNG with filter 0 on every row: io.image's encoders)
+def numpy_decode(path: str) -> np.ndarray:
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"P6":
+        magic, dims, maxval, raster = data.split(b"\n", 3)
+        w, h = map(int, dims.split())
+        return np.frombuffer(raster, np.uint8).reshape(h, w, 3)[:, :, ::-1]
+    if data[:2] == b"BM":
+        off, = struct.unpack_from("<I", data, 10)
+        w, h = struct.unpack_from("<ii", data, 18)
+        row = (w * 3 + 3) & ~3
+        px = np.frombuffer(data[off:off + row * h], np.uint8)
+        return px.reshape(h, row)[::-1, :w * 3].reshape(h, w, 3)
+    w, h = struct.unpack_from(">II", data, 16)
+    idat, pos = b"", 8
+    while pos < len(data):
+        n, = struct.unpack_from(">I", data, pos)
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    check(not rows[:, 0].any(), f"{path}: a PNG row with a filter")
+    return rows[:, 1:].reshape(h, w, 3)[:, :, ::-1]
+
+
+def ingest_images(torch, tmp: str, dev: str) -> dict:
+    """(2) bench.py's ResNet-20 and batch, fed from image files: every
+    device batch equal to its files' numpy decode; fitStream killed in
+    epoch 3 and resumed, within twice the gap of two clean fits; rows 1-7
+    launch nothing."""
+    from mmlspark_tpu_torch import TorchLearner, native
+    from mmlspark_tpu_torch.io.image import ENCODERS
+    from mmlspark_tpu_torch.io.loader import device_image_batches
+    fmts = ["ppm", "bmp"] + (["png"] if "png" in native.formats() else [])
+    rng = np.random.default_rng(SEED + 13)
+    n, hw, bs = INGEST_IMAGES, INGEST_IMAGE_HW, BENCH_BATCH
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    imgs = rng.integers(0, 64, size=(n, hw, hw, 3), dtype=np.uint8)
+    band = max(1, hw // 10)
+    for c in range(10):       # class c: a bright band in channel c % 3
+        imgs[labels == c, c * band:(c + 1) * band, :, c % 3] += 160
+    t0 = time.perf_counter()
+    paths = []
+    for i in range(n):
+        fmt = fmts[i % len(fmts)]
+        paths.append(os.path.join(tmp, f"img_{i:06d}.{fmt}"))
+        with open(paths[-1], "wb") as f:
+            f.write(ENCODERS[fmt](imgs[i]))
+    write_s = time.perf_counter() - t0
+
+    def batches():
+        return device_image_batches(paths, bs, hw, hw, device=dev)
+
+    t0 = time.perf_counter()
+    seen = sum(count for _b, _ok, count in batches())
+    synchronize(torch, dev)
+    load_s = time.perf_counter() - t0
+    check(seen == n, f"the loader gave {seen} of {n} images")
+    decode_s = 0.0          # one Python thread: open, read, numpy decode
+    for bi, (b, ok, count) in enumerate(batches()):
+        got = b[:count].cpu().numpy()
+        t0 = time.perf_counter()
+        want = np.stack([numpy_decode(p)
+                         for p in paths[bi * bs:bi * bs + count]])
+        decode_s += time.perf_counter() - t0
+        check(bool(ok[:count].all()) and np.array_equal(got, want)
+              and np.array_equal(got, imgs[bi * bs:bi * bs + count]),
+              f"device batch {bi} differs from its files' decode")
+
+    def stream():
+        for bi, (b, _ok, count) in enumerate(batches()):
+            yield b[:count], labels[bi * bs:bi * bs + count]
+
+    def learner(**kw):
+        return TorchLearner(modelConfig={"type": "resnet", "num_classes": 10},
+                            optimizer="momentum", learningRate=BENCH_LR,
+                            momentum=0.9, precision="bf16",
+                            epochs=INGEST_EPOCHS, seed=SEED, device=dev, **kw)
+
+    ck = os.path.join(tmp, "ckpt")
+    reset_kernel_counts()
+    reset_gbdt_counts()
+    clean = [learner().fitStream(stream) for _ in range(2)]
+    killed(lambda: learner(checkpointDir=ck).fitStream(stream),
+           INGEST_KILL_IMAGES)
+    resumer = learner(checkpointDir=ck)
+    check(resumer._latest_checkpoint() == (INGEST_EPOCHS - 2, None),
+          f"the killed image fit left {sorted(os.listdir(ck))}")
+    resumed = resumer.fitStream(stream)
+    launches = {**kernel_counts(), **gbdt_counts()}
+    check(not any(launches.values()),
+          f"the ResNet stream fits launched kernels of the table: {launches}")
+    clean_gap = params_rel_l2(clean[1], clean[0])
+    resume_gap = params_rel_l2(resumed, clean[0])
+    check(resume_gap <= TOL_INGEST_IMAGE_GAP * clean_gap,
+          f"the resumed image fit is {resume_gap} (relative L2) from a "
+          f"clean fit; two clean fits are {clean_gap} apart")
+    losses = clean[0]._fit_stats["epoch_losses"]
+    check(all(np.isfinite(losses)), f"image fit losses {losses}")
+    steps = -(-n // bs)
+    step_ms = [s / steps * 1e3 for s in clean[0]._fit_stats["epoch_seconds"]]
+    return {"images": n, "hw": hw, "formats": fmts, "batch": bs,
+            "steps_per_epoch": steps, "write_s": write_s,
+            "loader_images_per_s": n / load_s,
+            "numpy_decode_files_per_s": n / decode_s,
+            "batches_equal_numpy_decode": True,
+            "epoch_losses": losses, "step_ms_by_epoch": step_ms,
+            "step_ms": statistics.median(step_ms[1:]),
+            "clean_gap_rel_l2": clean_gap, "resume_gap_rel_l2": resume_gap,
+            "launches": launches}
+
+
+def ingest_csv(torch, tmp: str, dev: str) -> dict:
+    """(3) bench_gbdt.py's draws as a CSV file -> read_csv_matrix (bit for
+    bit numpy's parse) -> LightGBMClassifier(numIterations=20) ->
+    transform; (4) interleave_f32 over its 28 columns."""
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, native
+    from mmlspark_tpu_torch.io import read_csv_matrix
+    rng = np.random.default_rng(0)
+    n, d = INGEST_CSV_ROWS, GBDT_FEATURES
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    logit = x[:, 0] * 2 + x[:, 1] - x[:, 2] * 0.5 + rng.normal(0, 0.5, n)
+    y = (logit > 0).astype(np.float32)
+    mat = np.concatenate([x, y[:, None]], axis=1)
+    path = os.path.join(tmp, "higgs.csv")
+    # %.9g gives each float32 back exactly from a correctly rounded parse
+    with open(path, "w") as f:
+        f.write((",".join(["%.9g"] * (d + 1)) + "\n") * n
+                % tuple(mat.ravel().tolist()))
+    t0 = time.perf_counter()
+    got = read_csv_matrix(path)
+    parse_s = time.perf_counter() - t0
+    want = np.loadtxt(path, delimiter=",", dtype=np.float32)
+    check(got.dtype == np.float32 and np.array_equal(got, want)
+          and np.array_equal(got, mat),
+          "read_csv_matrix differs from numpy's parse of the file")
+    df = DataFrame({"features": got[:, :d], "label": got[:, d]})
+    clf = LightGBMClassifier(numIterations=INGEST_GBDT_ITERS, device=dev)
+    model, lf = counted_call(lambda: clf.fit(df))
+    check_launches(lf, launches_of(node_hist=INGEST_GBDT_ITERS * GBDT_DEPTH),
+                   "the CSV booster's fit", dev)
+    scored, ls = counted_call(lambda: model.transform(df))
+    check_launches(ls, launches_of(predict=1), "the CSV booster's transform",
+                   dev)
+    accuracy = float((np.asarray(scored.col("prediction")) == y).mean())
+    check(accuracy >= TOL_GBDT_ACCURACY,
+          f"the CSV booster's training accuracy {accuracy}")
+    cols = [np.ascontiguousarray(x[:, j]) for j in range(d)]
+    inter = np.empty((n, d), np.float32)
+    t0 = time.perf_counter()
+    check(native.interleave_f32(cols, inter),
+          "interleave_f32 did not run natively")
+    inter_s = time.perf_counter() - t0
+    check(np.array_equal(inter, np.stack(cols, axis=1)),
+          "interleave_f32 differs from np.stack")
+    size = os.path.getsize(path)
+    return {"rows": n, "features": d, "csv_bytes": size,
+            "parse_s": parse_s, "parse_mb_per_s": size / parse_s / 1e6,
+            "fit_launches": lf, "transform_launches": ls,
+            "train_accuracy": accuracy, "interleave_bit_exact": True,
+            "interleave_s": inter_s}
+
+
+def phase_ingest(torch, env, dev="cuda"):
+    """Out-of-core training: fitStream, checkpoints and bit-exact resume,
+    fed from files. (1) the transformer stream and feed fits, (2) ResNet-20
+    from image files, (3) a CSV file into a booster, (4) the Arrow
+    bridge's C++ half, ``interleave_f32`` (``io/arrow.py`` itself needs
+    pyarrow, which the card's machine lacks: the CPU tests hold it). The
+    native runtime is built and used: ``MMLSPARK_TPU_NO_NATIVE`` must be
+    unset, and ``native.calls`` must show the loader, the parser and the
+    interleave at work."""
+    import tempfile
+    from mmlspark_tpu_torch import native
+    t_phase = time.perf_counter()
+    check(not os.environ.get("MMLSPARK_TPU_NO_NATIVE"),
+          "MMLSPARK_TPU_NO_NATIVE is set: the phase needs the native runtime")
+    t0 = time.perf_counter()
+    lib_path = str(native.build())
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    before = dict(native.calls)
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stream = ingest_stream(torch, os.path.join(tmp, "s"), dev)
+        parts["transformer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "i"))
+        images = ingest_images(torch, os.path.join(tmp, "i"), dev)
+        parts["images"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        csv = ingest_csv(torch, tmp, dev)
+        parts["csv"] = time.perf_counter() - t0
+    used = {k: native.calls.get(k, 0) - before.get(k, 0)
+            for k in ("loader_batches", "csv", "interleave")}
+    check(all(used.values()), f"the native runtime was bypassed: {used}")
+    emit({"phase": "ingest", "config": TRAIN_CFG, "native_library": lib_path,
+          "host_cpus": os.cpu_count(),
+          "native_formats": list(native.formats()), "native_build_s": build_s,
+          "native_calls": used, "transformer": stream, "images": images,
+          "csv": csv, "parts_s": parts,
+          "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -3564,7 +3995,8 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
-          "vision_train", "automl_tabular", "automl_text", "platform")
+          "vision_train", "automl_tabular", "automl_text", "platform",
+          "ingest")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -3581,6 +4013,7 @@ PHASE_FNS = {
     "automl_tabular": phase_automl_tabular,
     "automl_text": phase_automl_text,
     "platform": phase_platform,
+    "ingest": phase_ingest,
 }
 
 
@@ -3643,6 +4076,7 @@ def main(argv=None) -> int:
     automl = phase_automl_tabular(torch, env)
     phase_automl_text(torch, env)
     phase_platform(torch, env)
+    phase_ingest(torch, env)
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],

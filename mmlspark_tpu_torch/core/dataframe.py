@@ -6,8 +6,7 @@ SURVEY.md §1/§3). This framework is Spark-free: the data plane is an
 immutable columnar table of numpy arrays, designed so whole columns can be
 shipped to device memory in one copy instead of the reference's element-wise
 JNI copies (reference: cntk-model/.../CNTKModel.scala:67-74). The PyTorch
-port's copy of ``mmlspark_tpu/core/dataframe.py``; only ``fromArrowStream``
-(which needs the io layer) is not ported yet.
+port's copy of ``mmlspark_tpu/core/dataframe.py``.
 
 Key properties:
   * columns are numpy arrays (numeric, string/object, or object-structs for
@@ -93,11 +92,9 @@ class DataFrame:
     def fromArrowStream(source) -> "DataFrame":
         """Materialize an Arrow record-batch stream (reader, table, batch
         iterable, or IPC file path) — columnar all the way, no Python rows
-        (io.arrow). Not ported yet: it waits for the ``io/`` slice
-        (ROADMAP.md Queue 1 item 10)."""
-        raise NotImplementedError(
-            "DataFrame.fromArrowStream waits for the port's io/ slice "
-            "(ROADMAP.md Queue 1, item 10); use DataFrame.fromArrow")
+        (io.arrow)."""
+        from ..io.arrow import frame_from_arrow_stream
+        return frame_from_arrow_stream(source)
 
     @staticmethod
     def fromRows(rows: Sequence[dict], npartitions: int = 1) -> "DataFrame":

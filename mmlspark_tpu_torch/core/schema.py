@@ -35,6 +35,11 @@ def make_image_row(path: str, height: int, width: int, channels: int,
             "type": int(channels), "bytes": data}
 
 
+def make_binary_row(path: str, data: bytes) -> dict:
+    """One file as a BinaryFileSchema struct-row."""
+    return {"path": path, "bytes": data}
+
+
 def image_to_array(row: dict) -> np.ndarray:
     """ImageSchema struct → HWC uint8 ndarray."""
     h, w, c = row["height"], row["width"], row["type"]

@@ -15,7 +15,8 @@ type 3 (a numpy scalar). Anything else raises.
 
 Every transfer is checked against the schema's sha256 (reference:
 Schema.scala:34-40). The HTTP repository (``RemoteRepo``, a ``server_url``)
-waits for the port of ``io/`` (ROADMAP.md Queue 1 item 10).
+waits for the port of ``io/http`` (ROADMAP.md Queue 1 item 10, serving
+half).
 """
 
 from __future__ import annotations
@@ -335,8 +336,8 @@ class LocalRepo(Repository):
 def _no_http():
     return NotImplementedError(
         "the HTTP model repository (RemoteRepo, server_url) waits for the "
-        "port of io/ (ROADMAP.md Queue 1 item 10); use a local repository "
-        "directory")
+        "port of io/http (ROADMAP.md Queue 1 item 10, serving half); use a "
+        "local repository directory")
 
 
 class RemoteRepo(Repository):

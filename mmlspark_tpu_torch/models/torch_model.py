@@ -220,7 +220,7 @@ class TorchModel(Transformer):
         raise NotImplementedError(
             "exportStableHLO is an XLA artifact; the port's deployment "
             "artifact waits for the serving-bundle port (ROADMAP.md Queue 1 "
-            "item 10)")
+            "item 10, serving half)")
 
     def capture(self, columns):
         raise NotImplementedError(

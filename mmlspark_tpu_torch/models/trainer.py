@@ -39,17 +39,35 @@ runs under ``_STEP_RETRY``, retried once on a transient error, with the
 routes each dispatch through ``telemetry.profiler`` and ``sloConfig``
 evaluates SLOs over the fit's step times.
 
+Checkpoints (``checkpointDir``) are the JAX package's files, so a
+directory moves between the packages: ``ckpt_EEEEE.msgpack`` marks epoch E
+complete, ``ckpt_EEEEE_sSSSSSSS.msgpack`` (``checkpointEverySteps``) step S
+of epoch E, each holding ``{"params", "opt", "scale"?}`` in flax msgpack:
+the f32 master params in the flax tree layout, the optimizer state in the
+layout ``flax.serialization.to_state_dict`` gives optax's, and the
+bf16_mixed loss-scale state. Files commit through ``resilience.ckpt``
+(manifest last; ``checkpointShards`` splits them, ``asyncCheckpoint``
+publishes them from a writer thread). A refit on the same directory
+resumes from the newest verified checkpoint, replaying the completed
+epochs' shuffle draws, so a killed fit resumed from an epoch checkpoint,
+or on the feed path from a step checkpoint, computes the uninterrupted
+fit's steps bit for bit. ``fitStream`` trains from a fresh iterator of
+batches each epoch (out-of-core: ``io.loader.device_image_batches``,
+``io.arrow.arrow_feature_batches`` or any generator).
+
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item when set away from their defaults: tensor/sequence/expert/pipeline
-parallelism (item 12), elastic training (item 13b) and checkpoints
-(``checkpointDir``, item 4); also ``fitStream`` and
-``fitStreamCaptured``.
+parallelism (item 12) and elastic training (item 13b); also
+``fitStreamCaptured`` (item 11).
 """
 
 from __future__ import annotations
 
+import itertools
+import os
+import sys
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,8 +84,9 @@ from ..resilience.policy import RetryPolicy
 from . import precision as prec
 from .modules import (TOKEN_MODELS, Conv2d, Dense, Embed, FrozenAffine,
                       GroupNorm, LayerNorm, build_model, sized_for)
-from .torch_model import (TorchModel, _prep_input, _token_matrix,
-                          full_precision_matmuls)
+from .torch_model import (TorchModel, _next_pow2, _prep_input,
+                          _token_matrix, full_precision_matmuls)
+from .weights import from_flax_params, to_flax_params
 
 log = get_logger("trainer")
 
@@ -387,12 +406,181 @@ def _not_ported(what: str, item: int):
         f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
+# ----------------------------------------------------------- stream batches
+
+def _stream_batch(b, cfg: dict, loss_name: str):
+    """One ``(features, labels)`` item of a ``fitStream`` generator, host
+    numpy or tensors (a device feed's), normalised: token models take int32
+    ids (range-checked, as ``fit`` does: a CUDA embedding lookup past the
+    table faults the device), uint8 image batches stay uint8 (the device
+    cast is free and bytes are 4x less host->device traffic), anything
+    else float32; labels follow the loss dtype."""
+    x, y = b
+    token = cfg.get("type") in TOKEN_MODELS
+    if isinstance(x, torch.Tensor):
+        if token:
+            x = x.to(torch.int32)
+        elif x.dtype != torch.uint8:
+            x = x.to(torch.float32)
+    else:
+        x = np.asarray(x)
+        if token:
+            x = x.astype(np.int32)
+        elif x.dtype != np.uint8:
+            x = x.astype(np.float32)
+    ydt = ("int32" if loss_name == "cross_entropy" else "float32")
+    y = (y.to(getattr(torch, ydt)) if isinstance(y, torch.Tensor)
+         else np.asarray(y).astype(ydt))
+    if len(x) != len(y):
+        raise ValueError(f"batch features/labels length mismatch: "
+                         f"{len(x)} vs {len(y)}")
+    if token and len(x):
+        vocab = cfg.get("vocab_size", 10000)
+        lo, hi = int(x.min()), int(x.max())
+        if lo < 0 or hi >= vocab:
+            raise ValueError(f"token ids must lie in [0, {vocab}); got "
+                             f"[{lo}, {hi}]")
+    return x, y
+
+
+def _pad_rows(a, rows: int):
+    """Extend dim 0 to ``rows`` with zeros (pad rows carry weight 0; id 0
+    lies in every vocabulary)."""
+    n = len(a)
+    if n == rows:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a.new_zeros((rows - n,) + tuple(a.shape[1:]))])
+    return np.concatenate([a, np.zeros((rows - n,) + a.shape[1:], a.dtype)])
+
+
+def _placed(a, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, non_blocking=True)
+    return _to_device(a, dev)
+
+
+# -------------------------------------------------------------- checkpoints
+
+def _fmt_pos(pos: Optional[tuple]) -> str:
+    """Human form of a checkpoint position tuple for error messages."""
+    if pos is None:
+        return "none"
+    epoch, step = pos
+    return (f"epoch {epoch}" if step is None
+            else f"epoch {epoch} step {step}")
+
+
+def _opt_state_dict(opt: dict, name: str, weight_decay: float,
+                    cfg: dict) -> dict:
+    """The port's optimizer state (CPU tensors) in the layout
+    ``flax.serialization.to_state_dict`` gives optax's state of the same
+    optimizer: a chain's members by index, ``EmptyState`` as ``{}``, the
+    moments as flax param trees."""
+    if name == "sgd":
+        inner = {}
+    elif name == "momentum":
+        inner = {"trace": to_flax_params(opt["trace"], cfg)}
+    else:
+        inner = {"count": np.asarray(int(opt["count"]), np.int32),
+                 "mu": to_flax_params(opt["mu"], cfg),
+                 "nu": to_flax_params(opt["nu"], cfg)}
+    st = {"0": inner, "1": {}}
+    if name == "adamw":                     # scale_by_adam, wd, lr
+        st["2"] = {}
+    elif weight_decay:                      # chain(add_decayed_weights, tx)
+        st = {"0": {}, "1": st}
+    return st
+
+
+def _opt_from_state_dict(st: dict, name: str, weight_decay: float,
+                         cfg: dict, dev: torch.device) -> dict:
+    """Inverse of :func:`_opt_state_dict`, onto ``dev``."""
+    if weight_decay and name != "adamw":
+        st = st["1"]
+    inner = st["0"]
+
+    def tensors(tree):
+        return {k: v.to(dev) for k, v in from_flax_params(tree, cfg).items()}
+    if name == "sgd":
+        return {}
+    if name == "momentum":
+        return {"trace": tensors(inner["trace"])}
+    return {"count": torch.tensor(int(np.asarray(inner["count"])),
+                                  dtype=torch.int32, device=dev),
+            "mu": tensors(inner["mu"]), "nu": tensors(inner["nu"])}
+
+
+def _tensors_of(tree) -> list:
+    """The tensors of a nest of dicts and tuples, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _tensors_of(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors_of(v)]
+    return []
+
+
+def _rebuilt(tree, it):
+    """``tree`` with its tensors replaced, in :func:`_tensors_of` order,
+    by the items of ``it``."""
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _rebuilt(v, it) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [_rebuilt(v, it) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return tree
+
+
+class _Snapshot:
+    """The training state ``(params, opt_state, scale_state)`` copied to
+    host memory for a checkpoint.
+
+    On a card the copy is enqueued on a side stream (``stream``) after an
+    event recorded on the producing stream, so it starts once the step
+    that made the tensors is done, without waiting for the card; it lands
+    in pinned memory, and ``record_stream`` keeps the caching allocator
+    from handing the source blocks to a later step before the copy has
+    read them. Nothing overwrites them meanwhile: every step computes new
+    tensors out of place (a skipped bf16_mixed step selects the old values
+    into new tensors). :meth:`host` waits for the copy's own event. On the
+    CPU the tensors themselves are the snapshot."""
+
+    def __init__(self, state: tuple, stream=None):
+        self._state = state
+        tensors = _tensors_of(state)
+        self._done = None
+        if stream is None:
+            self._host = [t.detach() for t in tensors]
+            return
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(stream.device))
+        stream.wait_event(ready)
+        with torch.cuda.stream(stream):
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+
+    def host(self) -> tuple:
+        """The state with host tensors in place of the device ones."""
+        if self._done is not None:
+            self._done.synchronize()
+        return _rebuilt(self._state, iter(self._host))
+
+
 class TorchLearner(Estimator):
     """Neural-net training on one device (the port of ``TpuLearner``).
 
     Params mirror the JAX package's; ``device`` is the port's own. The
-    parallelism, elastic and checkpoint Params are kept so a saved stage
-    round-trips, and raise at fit time away from their defaults."""
+    parallelism and elastic Params are kept so a saved stage round-trips,
+    and raise at fit time away from their defaults."""
 
     featuresCol = StringParam("features column (token ids for the "
                               "transformer)", default="features")
@@ -411,20 +599,32 @@ class TorchLearner(Estimator):
     seed = IntParam("seed of the init and of every shuffle", default=0)
     shuffle = BooleanParam("shuffle each epoch", default=True)
     checkpointDir = StringParam(
-        "per-epoch checkpoint directory ('' = off); not ported yet",
+        "per-epoch checkpoint directory ('' = off); a refit on the same "
+        "directory resumes from its newest verified checkpoint",
         default="")
     checkpointEverySteps = IntParam(
-        "also checkpoint every N steps within an epoch (needs "
-        "checkpointDir)", default=0, min=0)
+        "also checkpoint every N optimizer steps WITHIN an epoch (0 = "
+        "epoch boundaries only). A killed fit resumes from the last step "
+        "interval instead of the last epoch. Applies to the per-step "
+        "feed and stream paths; the scan path resumes at epoch "
+        "boundaries. Requires checkpointDir", default=0, min=0)
     asyncCheckpoint = BooleanParam(
-        "publish checkpoints from a background writer (needs "
-        "checkpointDir)", default=False)
+        "publish checkpoints from a background writer thread "
+        "(resilience/ckpt.py): the step loop only enqueues the copy of "
+        "the state to pinned host memory; the wait for it, serialization, "
+        "fsync, the atomic rename and the manifest commit overlap with the "
+        "next steps (depth-1 queue, newest-wins coalescing, a barrier at "
+        "each epoch end and at fit exit)", default=False)
     checkpointKeepSteps = IntParam(
-        "step checkpoints kept per epoch (needs checkpointDir)", default=3,
+        "step checkpoints retained per epoch (keep-last-K pruning as new "
+        "ones commit; the epoch-final save clears the rest). The "
+        "checkpoint the fit resumed from is never pruned", default=3,
         min=1)
     checkpointShards = IntParam(
-        "shard files per checkpoint (needs checkpointDir)", default=0,
-        min=0)
+        "split each checkpoint into this many byte-balanced shard files "
+        "(0/1 = one msgpack), committed with a head file and the manifest "
+        "last; a torn shard disqualifies the whole checkpoint and resume "
+        "falls back to the previous one", default=0, min=0)
     tensorParallel = IntParam("size of the model (TP) mesh axis; only 1 is "
                               "ported", default=1, min=1)
     sequenceParallel = IntParam("size of the sequence (SP) mesh axis; only "
@@ -515,9 +715,227 @@ class TorchLearner(Estimator):
             raise NotImplementedError(
                 "elastic training is not ported yet (ROADMAP.md Queue 1 "
                 "item 13b)")
-        if self.getCheckpointDir():
-            raise _not_ported("checkpoints and bit-exact resume "
-                              "(checkpointDir)", 4)
+
+    # ---- checkpointing ----
+    # Two granularities, as in the JAX package: ``ckpt_EEEEE.msgpack``
+    # marks epoch E COMPLETE; ``ckpt_EEEEE_sSSSSSSS.msgpack``
+    # (checkpointEverySteps > 0) marks step S within epoch E done.
+    def _ckpt_path(self, epoch: int, step: Optional[int] = None) -> str:
+        name = (f"ckpt_{epoch:05d}.msgpack" if step is None
+                else f"ckpt_{epoch:05d}_s{step:07d}.msgpack")
+        return os.path.join(self.getCheckpointDir(), name)
+
+    @staticmethod
+    def _parse_ckpt_name(fname: str) -> Optional[tuple]:
+        """'ckpt_00002.msgpack' -> (2, None); 'ckpt_00002_s0000005.msgpack'
+        -> (2, 5); anything else (a shard, a tmp file) -> None."""
+        if not (fname.startswith("ckpt_") and fname.endswith(".msgpack")):
+            return None
+        stem = fname[len("ckpt_"):-len(".msgpack")]
+        try:
+            if "_s" in stem:
+                e, s = stem.split("_s", 1)
+                return int(e), int(s)
+            return int(stem), None
+        except ValueError:
+            return None
+
+    def _ckpt_candidates(self) -> list:
+        """Every on-disk checkpoint as ``((epoch, step), filename)``, best
+        first (epoch desc; an epoch-final outranks any step checkpoint of
+        its epoch; later steps outrank earlier)."""
+        d = self.getCheckpointDir()
+        if not d or not os.path.isdir(d):
+            return []
+        found = [(p, f) for f in os.listdir(d)
+                 if (p := self._parse_ckpt_name(f)) is not None]
+        found.sort(key=lambda pf: (pf[0][0], pf[0][1] is None,
+                                   -1 if pf[0][1] is None else pf[0][1]),
+                   reverse=True)
+        return found
+
+    def _latest_checkpoint(self) -> Optional[tuple]:
+        """The newest manifest-verified position on disk as ``(epoch,
+        step)`` (``step`` None: the epoch completed). A file the manifest
+        does not vouch for (a torn write) is skipped, counted on
+        ``mmlspark_ckpt_corrupt_total``, and the previous one becomes the
+        candidate."""
+        from ..resilience import ckpt as ckptlib
+        d = self.getCheckpointDir()
+        for pos, fname in self._ckpt_candidates():
+            if ckptlib.verify(d, fname):
+                return pos
+        return None
+
+    def _ckpt_writer(self):
+        """The learner's background checkpoint publisher (made on the first
+        async save, closed at fit exit)."""
+        w = getattr(self, "_ckpt_writer_inst", None)
+        if w is None:
+            from ..resilience.ckpt import AsyncCheckpointWriter
+            w = self._ckpt_writer_inst = AsyncCheckpointWriter("trainer")
+        return w
+
+    def _ckpt_barrier(self, close: bool = False):
+        """Async-checkpoint barrier: returns once no write is pending or in
+        flight (a no-op when asyncCheckpoint never armed); ``close`` also
+        stops the writer. A writer-thread error re-raises here, unless
+        another exception is already unwinding (a step fault must not be
+        masked by a failed background write; it is logged instead)."""
+        w = getattr(self, "_ckpt_writer_inst", None)
+        if w is None:
+            return
+        if close:
+            self._ckpt_writer_inst = None
+        unwinding = sys.exc_info()[0] is not None
+        try:
+            (w.close if close else w.wait)()
+        except Exception as e:
+            if not unwinding:
+                raise
+            log.warning("async checkpoint failure surfaced while another "
+                        "error unwinds (kept secondary): %s", e)
+
+    def _prune_step_checkpoints(self, epoch: int, keep: Optional[int]):
+        """Drop this epoch's step checkpoints beyond the newest ``keep``
+        (None = drop them all: the epoch-final save supersedes them). The
+        checkpoint this fit resumed from is never pruned."""
+        from ..resilience import ckpt as ckptlib
+        floor = getattr(self, "_ckpt_floor", None)
+        steps = sorted(p[1] for p, _f in self._ckpt_candidates()
+                       if p[0] == epoch and p[1] is not None)
+        drop = steps if keep is None else \
+            (steps[:-keep] if len(steps) > keep else [])
+        ckptlib.prune(self.getCheckpointDir(),
+                      [f"ckpt_{epoch:05d}_s{s:07d}.msgpack" for s in drop
+                       if floor is None or (epoch, s) != tuple(floor)])
+
+    def _ckpt_state(self, params, opt_state, scale_state) -> dict:
+        """The checkpoint's state dict from host tensors: the f32 master
+        params (every precision mode: bf16 compute casts inside the step
+        and never writes back), the optimizer state and, under bf16_mixed,
+        the loss-scale recurrence, so a resumed fit continues bit-exact."""
+        cfg = self._ckpt_cfg
+        st = {"params": to_flax_params(params, cfg),
+              "opt": _opt_state_dict(opt_state, self.getOptimizer(),
+                                     self.getWeightDecay(), cfg)}
+        if scale_state is not None:
+            st["scale"] = prec.scale_state_to_host(scale_state)
+        return st
+
+    def _ckpt_stream(self, dev: torch.device):
+        """The side stream checkpoint copies run on (None on the CPU)."""
+        if dev.type != "cuda":
+            return None
+        s = getattr(self, "_ckpt_stream_inst", None)
+        if s is None or s.device != dev:
+            s = self._ckpt_stream_inst = torch.cuda.Stream(dev)
+        return s
+
+    def _save_checkpoint(self, epoch: int, state: tuple, dev,
+                         step: Optional[int] = None):
+        from ..resilience import ckpt as ckptlib
+        from .downloader import write_flax_msgpack
+        os.makedirs(self.getCheckpointDir(), exist_ok=True)
+        snap = _Snapshot(state, self._ckpt_stream(dev))
+        path = self._ckpt_path(epoch, step)
+        keep = self.getCheckpointKeepSteps()
+        n_shards = self.getCheckpointShards()
+
+        def on_commit():
+            # strictly after the rename + manifest commit: pruning only
+            # ever sees durable state
+            self._ckpt_floor = (epoch, step)
+            self._prune_step_checkpoints(epoch,
+                                         None if step is None else keep)
+
+        if n_shards > 1:
+            def payload():
+                flat = ckptlib.flatten_state(self._ckpt_state(*snap.host()))
+                keys = sorted(flat)
+                parts = ckptlib.partition_leaves(
+                    [getattr(flat[k], "nbytes", 64) for k in keys], n_shards)
+                return [write_flax_msgpack({keys[i]: flat[keys[i]]
+                                            for i in idxs})
+                        for idxs in parts]
+            publish = ckptlib.publish_sharded
+        else:
+            def payload():
+                return write_flax_msgpack(self._ckpt_state(*snap.host()))
+            publish = ckptlib.publish
+        if self.getAsyncCheckpoint():
+            self._ckpt_writer().submit(path, payload, on_commit=on_commit,
+                                       publish_fn=publish)
+            if step is None:
+                self._ckpt_barrier()      # epoch boundaries stay ordered
+        else:
+            publish(path, payload())
+            on_commit()
+
+    def _restore_checkpoint(self, pos: tuple) -> dict:
+        """The host state dict of checkpoint ``pos``. Raises
+        :class:`~..resilience.ckpt.CorruptCheckpoint` when the bytes fail
+        the manifest digest or do not decode; the resume falls back to the
+        previous checkpoint."""
+        from ..resilience import ckpt as ckptlib
+        from .downloader import read_flax_msgpack
+        path = self._ckpt_path(*pos)
+        d, name = os.path.split(path)
+        with open(path, "rb") as f:
+            blob = f.read()
+        if not ckptlib.verify_bytes(d, name, blob):
+            raise ckptlib.CorruptCheckpoint(name)
+        shards = ckptlib.parse_head(blob)
+        try:
+            if shards is not None:
+                flat: dict = {}
+                for sblob in ckptlib.read_shards(d, shards):
+                    flat.update(read_flax_msgpack(sblob))
+                return ckptlib.unflatten_state(flat)
+            return read_flax_msgpack(blob)
+        except ckptlib.CorruptCheckpoint:
+            raise
+        except ValueError as e:
+            ckptlib.note_corrupt(name, f"undecodable: {e}")
+            raise ckptlib.CorruptCheckpoint(name) from e
+
+    def _resume_training_state(self, state: tuple, dev):
+        """Restore ``(params, opt_state, scale_state)`` from the newest
+        checkpoint that verifies and decodes, falling back candidate by
+        candidate. Returns ``(state, start_epoch, start_step)``: a fresh
+        start is ``(state, 0, 0)``. One process: the position needs no
+        consensus."""
+        from ..resilience import ckpt as ckptlib
+        d = self.getCheckpointDir()
+        self._ckpt_floor = None
+        if not d:
+            return state, 0, 0
+        self._ckpt_barrier()   # an earlier fit's write lands first
+        cfg = self._ckpt_cfg
+        params, opt_state, scale_state = state
+        for pos, fname in self._ckpt_candidates():
+            if not ckptlib.verify(d, fname):
+                continue
+            try:
+                st = self._restore_checkpoint(pos)
+                new_params = {k: v.to(dev) for k, v in from_flax_params(
+                    st["params"], cfg).items()}
+                new_opt = _opt_from_state_dict(
+                    st["opt"], self.getOptimizer(), self.getWeightDecay(),
+                    cfg, dev)
+            except (ckptlib.CorruptCheckpoint, OSError, KeyError) as e:
+                log.warning("restore of checkpoint %s failed (%s); trying "
+                            "the previous checkpoint", _fmt_pos(pos), e)
+                continue
+            if scale_state is not None and st.get("scale") is not None:
+                scale_state = prec.scale_state_from_host(st["scale"], dev)
+            self._ckpt_floor = pos    # never pruned while this fit runs
+            epoch, step = pos
+            log.info("resumed from checkpoint %s", _fmt_pos(pos))
+            return ((new_params, new_opt, scale_state),
+                    epoch + (step is None),
+                    0 if step is None else step + 1)
+        return state, 0, 0
 
     def _device(self) -> torch.device:
         return resolve_device(self.getDevice(), "TorchLearner")
@@ -617,17 +1035,15 @@ class TorchLearner(Estimator):
         with self._slo_session():
             return self._fit(df)
 
-    def _fit(self, df: DataFrame) -> TorchModel:
-        dev = self._device()
-        cfg = self._cfg_with_precision(dict(self.getModelConfig()))
-        x, y = self._prepare_data(df, cfg)
-        n = len(x)
-        if n == 0:
-            raise ValueError("fit on an empty DataFrame")
-        # the sizes flax infers from the first batch, from the data; the
-        # step reads the weights it is handed, and the module itself holds
-        # none (meta), so it costs no memory and no init
-        sized = sized_for(cfg, x.shape)
+    def _training_setup(self, cfg: dict, x_shape, dev):
+        """``(step, state)`` of a fit whose batches have ``x_shape``: the
+        step body of the precision mode, and the fresh ``(params,
+        opt_state, scale_state)`` on ``dev``. The sizes flax infers from
+        the first batch come from the data (``self._ckpt_cfg``, which the
+        checkpoint layout reads too); the step reads the weights it is
+        handed, and the module itself holds none (meta), so it costs no
+        memory and no init."""
+        sized = self._ckpt_cfg = sized_for(cfg, x_shape)
         with torch.device("meta"):
             module = build_model(sized)
         mixed, grad_clip, scale_state = self._precision_setup(dev)
@@ -635,7 +1051,6 @@ class TorchLearner(Estimator):
                   for k, v in init_params(sized, self.getSeed()).items()}
         tx = make_optimizer(self.getOptimizer(), self.getLearningRate(),
                             self.getMomentum(), self.getWeightDecay())
-        opt_state = tx.init(params)
         loss_fn = make_loss(self.getLoss(), per_example=True)
         if mixed:
             step = _make_mixed_step_body(module, tx, loss_fn, grad_clip)
@@ -645,30 +1060,46 @@ class TorchLearner(Estimator):
             def step(p, o, ss, xb, yb, wb):
                 p, o, loss = plain(p, o, xb, yb, wb)
                 return p, o, None, loss
+        return step, (params, tx.init(params), scale_state)
 
+    def _fit(self, df: DataFrame) -> TorchModel:
+        dev = self._device()
+        cfg = self._cfg_with_precision(dict(self.getModelConfig()))
+        x, y = self._prepare_data(df, cfg)
+        n = len(x)
+        if n == 0:
+            raise ValueError("fit on an empty DataFrame")
+        step, state = self._training_setup(cfg, x.shape, dev)
+        state, start_epoch, start_step = self._resume_training_state(state,
+                                                                     dev)
         bs = max(1, min(self.getBatchSize(), n))
         steps = max(1, n // bs)
         data_cap = self.getDeviceDataCap() or _device_data_cap(dev)
         rng_np = np.random.default_rng(self.getSeed())
-        state = (params, opt_state, scale_state)
         scan = x.nbytes + y.nbytes <= data_cap
         run = self._run_epochs_scan if scan else self._run_epochs
         profile = self.getProfile()
         if profile:
             telemetry.profiler.enable()
         path = "scan" if scan else "feed"
-        with full_precision_matmuls(self.getPrecision() == "f32"), \
-                telemetry.trace.span("fit", model=cfg.get("type"), rows=n,
-                                     path=path):
-            state, stats = run(x, y, n, bs, steps, order_rng=rng_np,
-                               dev=dev, step=step, state=state,
-                               profile=profile)
+        try:
+            with full_precision_matmuls(self.getPrecision() == "f32"), \
+                    telemetry.trace.span("fit", model=cfg.get("type"),
+                                         rows=n, path=path):
+                state, stats = run(x, y, n, bs, steps, order_rng=rng_np,
+                                   dev=dev, step=step, state=state,
+                                   start_epoch=start_epoch,
+                                   start_step=start_step, profile=profile)
+        finally:
+            # an async checkpoint still in flight lands before the caller
+            # (or a refit) reads the directory
+            self._ckpt_barrier(close=True)
         if profile:
             # the fit's device memory peak, read after its last step
             telemetry.profiler.sample_live_buffers(dev, state)
         stats["path"] = path
         stats.pop("skipped_seen", None)   # _finish_epoch's telemetry cursor
-        if mixed:
+        if state[2] is not None:
             stats["scale_state"] = prec.scale_state_to_host(state[2])
         return self._package_model(cfg, state[0], stats)
 
@@ -686,7 +1117,119 @@ class TorchLearner(Estimator):
         return model
 
     def fitStream(self, batches_fn) -> TorchModel:
-        raise _not_ported("fitStream (out-of-core training)", 4)
+        """Out-of-core training: ``batches_fn()`` returns a FRESH iterator
+        of ``(features, labels)`` batches for every epoch — host numpy
+        arrays, or tensors already on the card, e.g. from
+        ``io.arrow.arrow_feature_batches`` or a wrapper of
+        ``io.loader.device_image_batches`` over a file corpus.
+
+        The model is sized from the first batch. Ragged batches bucket to
+        powers of two (at least 8 rows), the pad rows zero and weighted
+        out, so batch-size drift makes no new step signature. Each epoch's
+        batch preparation and copy run ``prefetchDepth`` batches ahead on
+        the prefetch thread. Checkpoints, resume and the divergence halt
+        work as in ``fit()``, except that a step checkpoint restarts its
+        epoch (a generator cannot seek: the optimizer state is the
+        checkpoint's, some batches are seen again)."""
+        self._refuse_unported()
+        with self._slo_session():
+            return self._fit_stream(batches_fn)
+
+    def _fit_stream(self, batches_fn) -> TorchModel:
+        dev = self._device()
+        cfg = self._cfg_with_precision(dict(self.getModelConfig()))
+        first_iter = iter(batches_fn())
+        first = next(first_iter, None)
+        if first is None:
+            raise ValueError("batches_fn() yielded no batches")
+        x0, _ = _stream_batch(first, cfg, self.getLoss())
+        step, state = self._training_setup(cfg, tuple(x0.shape), dev)
+        state, start_epoch, start_step = self._resume_training_state(state,
+                                                                     dev)
+        if start_step:
+            log.warning("step checkpoint (epoch %d, step %d) resumes at the "
+                        "epoch start on the stream path", start_epoch,
+                        start_step - 1)
+        profile = self.getProfile()
+        if profile:
+            telemetry.profiler.enable()
+            step = telemetry.profiler.wrap(step, "trainer.step")
+        from ..parallel.prefetch import prefetched
+        ckpt_every = (self.getCheckpointEverySteps()
+                      if self.getCheckpointDir() else 0)
+        stats = {"epoch_losses": [], "epoch_seconds": [],
+                 "stream_batches": [], "path": "stream"}
+        try:
+            with full_precision_matmuls(self.getPrecision() == "f32"), \
+                    telemetry.trace.span("fit", model=cfg.get("type"),
+                                         path="stream"):
+                for epoch in range(start_epoch, self.getEpochs()):
+                    stream = (itertools.chain([first], first_iter)
+                              if epoch == start_epoch
+                              else iter(batches_fn()))
+                    t0 = time.perf_counter()
+                    steps_it = prefetched(
+                        lambda s=stream: self._stream_epoch_steps(s, cfg,
+                                                                  dev),
+                        depth=self.getPrefetchDepth(), name="fit-stream",
+                        span="fit/prefetch")
+                    steps_run = rows = 0
+                    try:
+                        for n, xb, yb, wb in steps_it:
+                            t_step = time.perf_counter()
+                            with telemetry.trace.span(
+                                    "fit/step", epoch=epoch,
+                                    step=steps_run) as sp:
+                                def dispatch(_a, st=state, xb=xb, yb=yb,
+                                             wb=wb):
+                                    faults.inject("trainer.step")
+                                    return step(*st, xb, yb, wb)
+                                *new, loss = _STEP_RETRY.run(dispatch)
+                                state = tuple(new)
+                                sp.set_sync(loss)
+                            _m_step_time.observe(time.perf_counter()
+                                                 - t_step)
+                            steps_run += 1
+                            rows += n
+                            if ckpt_every and steps_run % ckpt_every == 0:
+                                self._save_checkpoint(epoch, state, dev,
+                                                      step=steps_run - 1)
+                    finally:
+                        steps_it.close()
+                    if steps_run == 0:
+                        raise ValueError(f"batches_fn() yielded no batches "
+                                         f"in epoch {epoch}")
+                    stats["stream_batches"].append(steps_run)
+                    self._finish_epoch(epoch, loss, stats, t0, rows,
+                                       state[2])
+                    if self.getCheckpointDir():
+                        self._save_checkpoint(epoch, state, dev)
+        finally:
+            self._ckpt_barrier(close=True)
+        stats.pop("skipped_seen", None)
+        if state[2] is not None:
+            stats["scale_state"] = prec.scale_state_to_host(state[2])
+        return self._package_model(cfg, state[0], stats)
+
+    def _stream_epoch_steps(self, stream, cfg, dev):
+        """One epoch of fitStream's per-batch host work as a generator:
+        normalise -> pow2 bucket -> zero pad -> weight mask -> copy to the
+        device. Yields ``(n_real, xb, yb, wb)`` with the batch on its way
+        to the device, so the consuming loop (the prefetch thread running
+        this ahead of it) only dispatches steps."""
+        for b in stream:
+            xb, yb = _stream_batch(b, cfg, self.getLoss())
+            n = len(xb)
+            target = _next_pow2(n)
+            wb = np.zeros(target, dtype=np.float32)
+            wb[:n] = 1.0
+            xb, yb = _pad_rows(xb, target), _pad_rows(yb, target)
+            if telemetry.enabled():
+                _note_step_signature("stream", xb, yb, wb)
+                _m_transfer_bytes.inc(sum(
+                    a.nbytes for a in (xb, yb, wb)
+                    if isinstance(a, np.ndarray)))
+            yield n, _placed(xb, dev), _placed(yb, dev), _to_device(wb, dev)
 
     def fitStreamCaptured(self, batches_fn, plan) -> TorchModel:
         raise _not_ported("fitStreamCaptured (fit-side capture)", 11)
@@ -704,24 +1247,38 @@ class TorchLearner(Estimator):
             scale_state, stats.get("skipped_seen", 0))
         log.info("epoch %d loss %.4f", epoch, last)
         if self.getHaltOnNonFinite() and not np.isfinite(last):
+            last_good = (self._latest_checkpoint()
+                         if self.getCheckpointDir() else None)
             raise RuntimeError(
                 f"training diverged: epoch {epoch} loss is {last} "
-                f"(lr={self.getLearningRate()})")
+                f"(lr={self.getLearningRate()}). "
+                + (f"Last good checkpoint: {_fmt_pos(last_good)} in "
+                   f"{self.getCheckpointDir()!r}; refit resumes there."
+                   if last_good is not None
+                   else "Set checkpointDir to make divergence resumable."))
 
     def _run_epochs(self, x, y, n, bs, steps, *, order_rng, dev, step,
-                    state, profile=False):
+                    state, start_epoch=0, start_step=0, profile=False):
         """The per-step feed path: one permutation per epoch, bs rows per
-        step with cyclic wrap, staged ``prefetchDepth`` steps ahead."""
+        step with cyclic wrap, staged ``prefetchDepth`` steps ahead. A step
+        checkpoint re-enters its epoch at the next step."""
         from ..parallel.prefetch import prefetched
         wb = torch.ones(bs, dtype=torch.float32, device=dev)  # every row real
         if profile:
             step = telemetry.profiler.wrap(step, "trainer.step")
+        # replay the completed epochs' permutation draws (before the
+        # prefetch thread draws), so a resumed fit sees the uninterrupted
+        # fit's orders
+        if self.getShuffle():
+            for _ in range(start_epoch):
+                order_rng.permutation(n)
 
         def produce():
-            for epoch in range(self.getEpochs()):
+            for epoch in range(start_epoch, self.getEpochs()):
                 order = (order_rng.permutation(n) if self.getShuffle()
                          else np.arange(n))
-                for s in range(steps):
+                s0 = start_step if epoch == start_epoch else 0
+                for s in range(s0, steps):
                     idx = order[(s * bs + np.arange(bs)) % n]
                     xh, yh = x[idx], y[idx]
                     if telemetry.enabled():
@@ -732,36 +1289,51 @@ class TorchLearner(Estimator):
 
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "steps_per_epoch": steps, "batch_rows": bs}
-        params, opt_state, scale_state = state
+        ckpt_every = (self.getCheckpointEverySteps()
+                      if self.getCheckpointDir() else 0)
         it = prefetched(produce, depth=self.getPrefetchDepth(),
                         name="fit-feed", span="fit/prefetch")
         t0 = time.perf_counter()
+        epoch_steps = 0
         try:
             for epoch, s, xb, yb in it:
                 t_step = time.perf_counter()
                 with telemetry.trace.span("fit/step", epoch=epoch,
                                           step=s) as sp:
-                    def dispatch(_a, p=params, o=opt_state,
-                                 ss=scale_state, xb=xb, yb=yb):
+                    def dispatch(_a, st=state, xb=xb, yb=yb):
                         faults.inject("trainer.step")
-                        return step(p, o, ss, xb, yb, wb)
-                    params, opt_state, scale_state, loss = \
-                        _STEP_RETRY.run(dispatch)
+                        return step(*st, xb, yb, wb)
+                    *new, loss = _STEP_RETRY.run(dispatch)
+                    state = tuple(new)
                     sp.set_sync(loss)
                 _m_step_time.observe(time.perf_counter() - t_step)
-                if s == steps - 1:
-                    self._finish_epoch(epoch, loss, stats, t0, steps * bs,
-                                       scale_state)
-                    t0 = time.perf_counter()
+                epoch_steps += 1
+                if s < steps - 1:
+                    if ckpt_every and (s + 1) % ckpt_every == 0:
+                        self._save_checkpoint(epoch, state, dev, step=s)
+                    continue
+                self._finish_epoch(epoch, loss, stats, t0, epoch_steps * bs,
+                                   state[2])
+                if self.getCheckpointDir():
+                    self._save_checkpoint(epoch, state, dev)
+                t0 = time.perf_counter()
+                epoch_steps = 0
         finally:
             it.close()
-        return (params, opt_state, scale_state), stats
+        return state, stats
 
     def _run_epochs_scan(self, x, y, n, bs, steps, *, order_rng, dev, step,
-                         state, profile=False):
+                         state, start_epoch=0, start_step=0, profile=False):
         """The device-resident path: the epoch (padded to ``steps * bs``
         rows, pad rows weight 0, plus a bs-row wrap margin) lives on the
-        device, and each step is a window of it."""
+        device, and each step is a window of it. Checkpoints are taken at
+        epoch ends; a step checkpoint restarts its epoch."""
+        if start_step:
+            # the windows of an epoch are drawn together; restart the
+            # epoch — the params already hold the checkpointed steps
+            log.warning("step checkpoint (epoch %d, step %d) resumes at the "
+                        "epoch start on the scan path", start_epoch,
+                        start_step - 1)
         # one device: the data axis is 1, so the batch needs no rounding;
         # ceil instead of the feed path's floor, so windows cover every row
         steps = max(1, -(-n // bs))
@@ -806,10 +1378,17 @@ class TorchLearner(Estimator):
         w_dev = margin(w_all)
         kpd = self.getStepsPerDispatch() or steps
         base = np.arange(steps, dtype=np.int32) * bs
+        # replay the completed epochs' draws, so a resumed fit sees the
+        # uninterrupted fit's orders
+        for _ in range(start_epoch):
+            if reshuffle:
+                order_rng.permutation(n)
+            elif self.getShuffle():
+                order_rng.permutation(steps)
+                order_rng.integers(0, n_pad)
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "steps_per_epoch": steps, "batch_rows": bs}
-        params, opt_state, scale_state = state
-        for epoch in range(self.getEpochs()):
+        for epoch in range(start_epoch, self.getEpochs()):
             t0 = time.perf_counter()
             if reshuffle:
                 perm = order_rng.permutation(n)
@@ -829,16 +1408,16 @@ class TorchLearner(Estimator):
                     with telemetry.trace.span(
                             "fit/step", epoch=epoch, first_step=lo,
                             steps=min(kpd, steps - lo)) as sp:
-                        def dispatch(_a, p=params, o=opt_state,
-                                     ss=scale_state, lo=lo):
+                        def dispatch(_a, st=state, lo=lo):
                             faults.inject("trainer.step")
-                            return run_window(p, o, ss, x_dev, y_dev, w_dev,
+                            return run_window(*st, x_dev, y_dev, w_dev,
                                               starts[lo:lo + kpd])
-                        params, opt_state, scale_state, loss = \
-                            _STEP_RETRY.run(dispatch)
+                        *new, loss = _STEP_RETRY.run(dispatch)
+                        state = tuple(new)
                         sp.set_sync(loss)
                     _m_step_time.observe(time.perf_counter() - t_disp)
                 ep_sp.set_sync(loss)
-            self._finish_epoch(epoch, loss, stats, t0, steps * bs,
-                               scale_state)
-        return (params, opt_state, scale_state), stats
+            self._finish_epoch(epoch, loss, stats, t0, steps * bs, state[2])
+            if self.getCheckpointDir():
+                self._save_checkpoint(epoch, state, dev)
+        return state, stats

@@ -27,7 +27,7 @@ Each package keeps its own registry and reads the same switches.
 
 Not ported here: ``federation`` (the fleet-wide scrape, ROADMAP.md Queue 1
 item 13b) and the ``GET /metrics`` endpoint of the HTTP serving layer
-(item 10).
+(item 10, serving half).
 """
 
 from __future__ import annotations

@@ -40,7 +40,8 @@ the shared registry) or ``TorchLearner(profile=True)``. A disabled
 :class:`ProfiledFunction` call is one attribute check and the plain call.
 
 Not ported: ``aot=True``, ``aot_compile``, ``preload`` and ``is_cached``,
-which serve the serving bundle's warm starts (ROADMAP.md Queue 1 item 10).
+which serve the serving bundle's warm starts (ROADMAP.md Queue 1 item 10,
+serving half).
 """
 
 from __future__ import annotations

@@ -46,8 +46,16 @@ def test_dataframe_ops_match_jax(op):
 
 
 def test_from_arrow_stream_names_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataFrame.fromArrowStream(None)
+    """``fromArrowStream`` waited for ROADMAP item 10's ingest half, which
+    is ported: a record-batch stream materializes as the JAX package's
+    frame does."""
+    import pyarrow as pa
+    port, ref = _frames(n=40)
+    table = pa.table({"k": port.col("k"), "x": port.col("x")})
+    batches = table.to_batches(max_chunksize=16)
+    _same(DataFrame.fromArrowStream(batches),
+          JaxDataFrame.fromArrowStream(batches))
+    _same(DataFrame.fromArrowStream(table), ref.select("k", "x"))
 
 
 class _Scale(Transformer):

@@ -1,13 +1,17 @@
 """The PyTorch port stands alone: ``mmlspark_tpu_torch`` and ``chip_smoke.py``
 import no jax, flax or optax, and nothing of the JAX package — only the
-tests import both. Nor do they import sklearn, pandas, pyarrow or
-matplotlib when a module is imported (the card's machine has none of them):
-such an import may only sit inside the function that needs it
-(``DataFrame.fromPandas``, ``plot.confusionMatrix``)."""
+tests import both. Nor do they import sklearn, pandas, pyarrow,
+matplotlib, cv2 or PIL when a module is imported (the card's machine has
+none of them): such an import may only sit inside the function that needs
+it (``DataFrame.fromPandas``, ``plot.confusionMatrix``, ``io.arrow``'s
+readers, ``io.image``'s GIF/TIFF/WebP decode). Nor does any port file name
+a path under the JAX package (the native runtime's C++ sources are the
+port's own copy)."""
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -17,7 +21,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mmlspark_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
-NOT_ON_THE_CARD = ("sklearn", "pandas", "pyarrow", "matplotlib")
+NOT_ON_THE_CARD = ("sklearn", "pandas", "pyarrow", "matplotlib", "cv2",
+                   "PIL")
 
 
 def _imported_modules(path: Path) -> set:
@@ -87,7 +92,11 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.resilience, "
             "mmlspark_tpu_torch.plot, "
             "mmlspark_tpu_torch.testing.fuzzing, "
-            "mmlspark_tpu_torch.core.serialize; "
+            "mmlspark_tpu_torch.core.serialize, "
+            "mmlspark_tpu_torch.native, mmlspark_tpu_torch.io, "
+            "mmlspark_tpu_torch.io.arrow, mmlspark_tpu_torch.io.loader, "
+            "mmlspark_tpu_torch.io.image, "
+            "mmlspark_tpu_torch.resilience.ckpt; "
             "mmlspark_tpu_torch.core.serialize._ensure_registry_populated(); "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -107,6 +116,51 @@ def test_port_sources_import_no_jax(path):
     assert _forbidden(_imported_modules(ROOT / path)) == []
     assert _forbidden(_module_level_imports(ROOT / path),
                       NOT_ON_THE_CARD) == []
+
+
+def _string_constants(path: Path) -> list:
+    """(line, text) of every string constant that is not a docstring."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+_JAX_PATH = re.compile(r"(^|[/\\])mmlspark_tpu($|[/\\])")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+    if "_build" not in p.relative_to(PORT).parts))
+def test_port_sources_name_no_path_of_the_jax_package(path):
+    assert [(ln, s) for ln, s in _string_constants(ROOT / path)
+            if _JAX_PATH.search(s)] == []
+
+
+def test_path_check_sees_a_jax_path(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text('"""docs may cite mmlspark_tpu/io/loader.py"""\n'
+                   'import os\n'
+                   'CSRC = os.path.join(ROOT, "mmlspark_tpu", "native")\n'
+                   'OTHER = f"{ROOT}/mmlspark_tpu/native/csrc"\n'
+                   'FINE = "mmlspark_tpu_torch/_build/native"\n')
+    hits = [s for _ln, s in _string_constants(src) if _JAX_PATH.search(s)]
+    assert hits == ["mmlspark_tpu", "/mmlspark_tpu/native/csrc"]
+
+
+def test_native_sources_are_the_ports_own():
+    from mmlspark_tpu_torch import native
+    assert native.CSRC == PORT / "native" / "csrc"
+    assert sorted(p.name for p in native.CSRC.iterdir()) == [
+        "arrow.cc", "csvparse.cc", "decode.cc", "gbdt.cc", "loader.cc",
+        "mmltpu.h", "resize.cc"]
+    assert all(str(a).startswith(str(PORT)) or not a.endswith(".cc")
+               for a in native.build_command())
 
 
 def test_chip_smoke_imports_no_jax():

@@ -359,19 +359,27 @@ def test_init_params_shapes_and_distributions():
 
 @pytest.mark.parametrize("param,value", [
     ("tensorParallel", 2), ("sequenceParallel", 2), ("expertParallel", 2),
-    ("pipelineParallel", 2), ("elastic", True), ("checkpointDir", "/ckpt")])
+    ("pipelineParallel", 2), ("elastic", True),
+    ("checkpointDir", "/ckpt")])
 def test_unported_params_raise(param, value):
+    """Each unported Param raises naming its ROADMAP item; checkpoints are
+    ported, so ``checkpointDir`` raises only with elastic training."""
     df, _ = _frames(rows=8, seed=8)
+    extra = {"elastic": True} if param == "checkpointDir" else {}
     learner = TorchLearner(modelConfig=CFG, device="cpu", featuresCol="tokens",
-                           **{param: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+                           **{param: value}, **extra)
+    match = ("item 13b" if param in ("elastic", "checkpointDir")
+             else "ROADMAP.md Queue 1 item 12")
+    with pytest.raises(NotImplementedError, match=match):
         learner.fit(df)
 
 
 def test_fit_stream_and_cuda_without_a_card_raise():
-    learner = TorchLearner(modelConfig=CFG, featuresCol="tokens")
-    with pytest.raises(NotImplementedError, match="fitStream"):
+    learner = TorchLearner(modelConfig=CFG, featuresCol="tokens",
+                           device="cpu")
+    with pytest.raises(ValueError, match="no batches"):
         learner.fitStream(lambda: iter(()))
+    learner = TorchLearner(modelConfig=CFG, featuresCol="tokens")
     with pytest.raises(NotImplementedError):
         learner.fitStreamCaptured(lambda: iter(()), None)
     if torch.cuda.is_available():
