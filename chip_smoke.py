@@ -71,9 +71,11 @@ Phases, each printing one JSON line:
 5. slice  — the serving path at full width: a DataFrame of 13 rows x 4096
    token ids -> ``TorchModel.transform`` (causal TransformerEncoder,
    d_model 512, 4 heads, 4 layers, vocab 32000, bfloat16, random weights
-   from a numpy seed) -> scores. The forward kernel's launch count over
-   that one transform must be layers x chunks; the scores must be finite
-   and match the same model with plain-PyTorch blockwise attention.
+   from a numpy seed) -> scores, after ``warmup`` (which captures the
+   8-row bucket's CUDA graph: each chunk is one replay). The forward
+   kernel's launch count over that one transform must be layers x chunks
+   (counted across replays); the scores must be finite and match the same
+   model with plain-PyTorch blockwise attention.
 6. train  — the training path at the same width (remat on, bf16 over f32
    masters): 32 rows x 4096 tokens with numpy-seeded labels ->
    ``TorchLearner(optimizer="adam", learningRate=1e-3, batchSize=8,
@@ -256,6 +258,27 @@ Phases, each printing one JSON line:
    run the loader, the parser and the interleave (``native.calls``), with
    ``MMLSPARK_TPU_NO_NATIVE`` unset.
 
+17. serving — the serving path (``SERVE_*``). (a) ``SLICE_CFG`` behind
+   ``serve_continuous`` (``FusedServingStep``, ``BucketPolicy(max_batch=16,
+   min_bucket=1)``, scores): all 5 buckets captured as CUDA graphs before
+   the source opens; 256 requests of 4096 random token ids (base64 int32)
+   sent by ``HTTPTransformer(concurrency=8)``; every reply within 2e-2
+   (relative L2) of an eager forward of its row, its argmax equal wherever
+   the eager top-two gap exceeds 5e-2; row 1 launched exactly layers x the
+   dispatches (counted across replays); no cache miss; each bucket's replay
+   equal to an eager forward of the same padded batch bit for bit, both
+   timed; requests/s, and p50/p99 latency of closed loops of 1, 4 and 8
+   clients. (b) ``save_bundle``, then ``python -m
+   mmlspark_tpu_torch.io.http.worker --bundle DIR`` in a subprocess: every
+   bucket warm with no nvcc run, 32 of (a)'s payloads answered with (a)'s
+   replies bit for bit, no miss; the seconds from spawn to first reply.
+   (c) the 13 x 4096 ``TorchModel.transform`` after ``warmup`` (one graph
+   per bucket), equal to the eager model's bit for bit, its ms with graphs
+   and without. (d) ``serve_pipeline`` over ingest's level-wise booster
+   (262,144 rows, 20 iterations): 64 JSON requests of 28 floats, replies
+   equal to ``transform``'s bit for bit, row 5 launched once per polling
+   batch.
+
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
 the last line; nothing falls back to the CPU. Without a CUDA device, or
@@ -432,6 +455,17 @@ INGEST_KILL_STREAM, INGEST_KILL_FEED = 11, 7
 INGEST_IMAGES, INGEST_IMAGE_HW, INGEST_KILL_IMAGES = 24_576, 32, 4
 INGEST_CSV_ROWS, INGEST_GBDT_ITERS = 262_144, 20
 TOL_INGEST_IMAGE_GAP = 2.0
+# the serving phase: SLICE_CFG behind serve_continuous with buckets 1..16;
+# 256 requests of 4096 token ids sent 8 at a time; closed loops of 1, 4 and
+# 8 clients over 64 of them; 32 of them again to the restarted worker;
+# ingest's booster (262,144 rows, 20 iterations) behind serve_pipeline, 64
+# JSON requests. A reply within 2e-2 (relative L2) of an eager forward of
+# its row (bf16: TOL_OUT), its argmax equal where the eager top-two gap
+# exceeds 5e-2
+SERVE_MAX_BATCH, SERVE_REQUESTS, SERVE_CONCURRENCY = 16, 256, 8
+SERVE_CLIENTS, SERVE_LATENCY_REQS, SERVE_RESTART_REQS = (1, 4, 8), 64, 32
+SERVE_GBDT_ROWS, SERVE_GBDT_REQUESTS = INGEST_CSV_ROWS, 64
+TOL_SERVE_L2, TOL_SERVE_GAP = 2e-2, 5e-2
 
 
 def emit(obj):
@@ -3981,6 +4015,345 @@ def phase_ingest(torch, env, dev="cuda"):
           "seconds": time.perf_counter() - t_phase})
 
 
+def b64_rows(rows) -> list:
+    import base64
+    return [base64.b64encode(np.ascontiguousarray(r).tobytes()).decode()
+            for r in rows]
+
+
+def post_replies(url: str, payloads, concurrency: int) -> list:
+    """The reply bodies of ``payloads`` POSTed to ``url`` through the
+    port's ``HTTPTransformer`` (every one must answer 200)."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.core.utils import object_column
+    from mmlspark_tpu_torch.io.http import HTTPTransformer
+    reqs = [{"url": url, "method": "POST", "body": p} for p in payloads]
+    out = (HTTPTransformer(concurrency=concurrency, timeout=120.0)
+           .setInputCol("req").setOutputCol("resp")
+           .transform(DataFrame({"req": object_column(reqs)})).col("resp"))
+    codes = [r["statusCode"] for r in out]
+    check(all(c == 200 for c in codes),
+          f"replies with status {sorted(set(codes))}: "
+          f"{[r for r in out if r['statusCode'] != 200][:2]}")
+    return [r["body"] for r in out]
+
+
+def closed_loop(url: str, payloads, clients: int) -> dict:
+    """``clients`` threads, each sending its share of ``payloads`` one
+    after another (a closed loop): per-request latency p50/p99 and the
+    requests/s of the whole run, and the reply of each payload."""
+    from mmlspark_tpu_torch.io.http.transformer import request
+    lat = [0.0] * len(payloads)
+    bodies = [None] * len(payloads)
+
+    def client(k):
+        for i in range(k, len(payloads), clients):
+            t0 = time.perf_counter()
+            r = request("POST", url, data=payloads[i], timeout=120.0)
+            lat[i] = time.perf_counter() - t0
+            check(r.status_code == 200, f"status {r.status_code}: {r.text}")
+            bodies[i] = r.text
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    ms = np.sort(np.asarray(lat)) * 1e3
+    return {"clients": clients, "requests": len(payloads),
+            "requests_per_s": len(payloads) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "bodies": bodies}
+
+
+def serve_buckets(torch, step, dev: str) -> dict:
+    """Each bucket's graph replay against an eager forward of the same
+    padded batch (bit for bit), and both timed."""
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    for b in step.policy.buckets:
+        xb = torch.from_numpy(rng.integers(
+            0, SLICE_CFG["vocab_size"], size=(b, SEQ), dtype=np.int32)).to(dev)
+        ex = step.executable(b)
+        check(ex is not None, f"bucket {b} was not captured")
+        before = ex.replays
+        got, want = ex(xb), step.forward(xb)
+        check(ex.replays == before + 1, "the executable did not replay")
+        same = bool(torch.equal(got, want))
+        entry = {"bit_equal": same, "rel_l2": rel_l2(got.cpu(), want.cpu())}
+        check(same, f"bucket {b}: the replay differs from an eager forward "
+              f"(relative L2 {entry['rel_l2']})")
+        if dev == "cuda":
+            entry["replay_ms"] = cuda_ms(torch, lambda: ex(xb))
+            entry["eager_ms"] = cuda_ms(torch, lambda: step.forward(xb))
+        out[str(b)] = entry
+    return out
+
+
+def serve_worker(torch, bundle: str, payloads, want: list, dev: str) -> dict:
+    """(b) ``python -m mmlspark_tpu_torch.io.http.worker --bundle DIR`` in
+    a subprocess: warm from the bundle with no nvcc run, the replies of
+    (a) bit for bit, no cache miss. The process is killed at the end."""
+    import subprocess
+    from mmlspark_tpu_torch.io.http.transformer import request
+    env = dict(os.environ, MMLSPARK_TPU_TELEMETRY="1",
+               PYTHONPATH=os.getcwd())
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mmlspark_tpu_torch.io.http.worker",
+         "--bundle", bundle, "--device", dev],
+        stdout=subprocess.PIPE, text=True, env=env)
+    try:
+        ports = json.loads(proc.stdout.readline())   # after load_bundle
+        ports_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{ports['port']}/"
+        ctl = f"http://127.0.0.1:{ports['control']}"
+        bodies = []
+        for p in payloads:
+            r = request("POST", url, data=p, timeout=120.0)
+            check(r.status_code == 200, f"worker status {r.status_code}")
+            if not bodies:
+                first_s = time.perf_counter() - t0
+            bodies.append(r.text)
+        health = json.loads(request("GET", ctl + "/healthz").text)
+        metrics = request("GET", ctl + "/metrics").text
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+    counts = {}
+    for name in ("mmlspark_serving_exec_cache_misses_total",
+                 "mmlspark_serving_exec_cache_hits_total",
+                 "mmlspark_serving_bundle_execs_loaded_total"):
+        vals = [float(ln.split()[-1]) for ln in metrics.splitlines()
+                if ln.startswith(name)]
+        counts[name] = sum(vals)
+    serving = health["serving"]
+    check(serving["warm_buckets"] == serving["buckets"],
+          f"the worker came up with warm buckets {serving['warm_buckets']}")
+    check(serving["compiles"] == 0 and serving["nvcc_builds"] == 0,
+          f"the worker captured or built on traffic: {serving}")
+    check(counts["mmlspark_serving_exec_cache_misses_total"] == 0
+          and counts["mmlspark_serving_exec_cache_hits_total"] > 0,
+          f"the worker's cache counters {counts}")
+    same = bodies == want
+    check(same, "the restarted worker's replies differ from (a)'s")
+    return {"spawn_to_first_reply_s": first_s,
+            "spawn_to_ports_s": ports_s, "requests": len(payloads),
+            "replies_bit_equal": same, "serving": serving,
+            "counters": counts}
+
+
+def serve_transform_graphs(torch, params, dev: str) -> dict:
+    """(c) the 13 x 4096 TorchModel.transform after warmup (one graph per
+    bucket) against the same model with no graph, bit for bit, both
+    timed."""
+    from mmlspark_tpu_torch import DataFrame, TorchModel
+    from mmlspark_tpu_torch.ops.flash_attention import flash_attention_fwd
+    rng = np.random.default_rng(SEED + 21)
+    df = DataFrame({"tokens": rng.integers(
+        0, SLICE_CFG["vocab_size"], size=(ROWS, SEQ), dtype=np.int32)})
+
+    def model():
+        return TorchModel(inputCol="tokens", outputCol="scores",
+                          modelConfig=SLICE_CFG, modelParams=params,
+                          miniBatchSize=MINI_BATCH, device=dev)
+
+    graphs, eager = model().warmup(df), model()
+    if dev == "cuda":
+        (pf,) = graphs._graphs.values()      # one output layer, one bucket
+        (ex,) = pf._execs.values()
+        replays = ex.replays
+    flash_attention_fwd.launches = 0
+    got = np.stack(graphs.transform(df).col("scores"))
+    launches = flash_attention_fwd.launches
+    chunks = -(-ROWS // MINI_BATCH)
+    if dev == "cuda":
+        check(launches == SLICE_CFG["layers"] * chunks,
+              f"the graph transform counted {launches} flash launches")
+        check(ex.replays - replays == chunks,
+              f"the transform replayed {ex.replays - replays} graphs for "
+              f"{chunks} chunks")
+    want = np.stack(eager.transform(df).col("scores"))
+    same = bool(np.array_equal(got, want))
+    check(same, f"the graph transform differs from the eager one by "
+          f"{float(np.abs(got - want).max())}")
+    out = {"rows": ROWS, "seq": SEQ, "chunks": chunks,
+           "flash_launches": launches, "bit_equal_eager": same}
+    times = {"graphs": [], "eager": []}
+    for name in ("graphs", "eager", "eager", "graphs") * 3:   # in turns
+        m = graphs if name == "graphs" else eager
+        t0 = time.perf_counter()
+        m.transform(df)
+        times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        out[f"{name}_ms"] = statistics.median(ts) * 1e3
+        out[f"{name}_ms_calls"] = [t * 1e3 for t in ts]
+    return out
+
+
+class BoosterReplies:
+    """value (a JSON list of 28 floats) -> the booster's prediction and
+    probability; counts the polling batches it scored."""
+
+    def __init__(self, model):
+        self.model = model
+        self.batches = 0
+
+    def transform(self, df):
+        from mmlspark_tpu_torch.core.utils import object_column
+        x = np.stack([np.asarray(json.loads(v), np.float32)
+                      for v in df.col("value")])
+        self.batches += 1
+        scored = self.model.transform(df.withColumn(
+            "features", object_column(list(x))))
+        return df.withColumn("reply", object_column(booster_replies(scored)))
+
+
+def booster_replies(scored) -> list:
+    return [json.dumps({"prediction": float(p),
+                        "probability": np.asarray(q).tolist()})
+            for p, q in zip(scored.col("prediction"),
+                            scored.col("probability"))]
+
+
+def serve_booster(torch, dev: str) -> dict:
+    """(d) serve_pipeline over a level-wise booster fitted on
+    bench_gbdt.py's draws at SERVE_GBDT_ROWS rows: JSON requests of 28
+    floats, replies equal to transform's bit for bit, row 5 launched once
+    per polling batch."""
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.core.utils import object_column
+    from mmlspark_tpu_torch.io.http import serve_pipeline
+    rng = np.random.default_rng(0)
+    n, d = SERVE_GBDT_ROWS, GBDT_FEATURES
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = ((x[:, 0] * 2 + x[:, 1] - x[:, 2] * 0.5 + rng.normal(0, 0.5, n))
+         > 0).astype(np.float32)
+    t0 = time.perf_counter()
+    model = LightGBMClassifier(numIterations=INGEST_GBDT_ITERS,
+                               device=dev).fit(DataFrame({"features": x,
+                                                          "label": y}))
+    fit_s = time.perf_counter() - t0
+    rows = x[:SERVE_GBDT_REQUESTS]
+    want = booster_replies(model.transform(DataFrame(
+        {"features": object_column(list(rows))})))
+    replier = BoosterReplies(model)
+    source, loop = serve_pipeline(replier, max_batch=SERVE_MAX_BATCH)
+    try:
+        reset_gbdt_counts()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        got = post_replies(source.url, [json.dumps(r.tolist())
+                                        for r in rows], SERVE_CONCURRENCY)
+        serve_s = time.perf_counter() - t0
+        launches = {**gbdt_counts(), **kernel_counts()}
+    finally:
+        loop.stop()
+        source.close()
+    check(got == want, "the booster's replies differ from transform's")
+    check_launches(launches, launches_of(predict=replier.batches),
+                   "the booster behind serve_pipeline", dev)
+    return {"rows": n, "iterations": INGEST_GBDT_ITERS, "fit_s": fit_s,
+            "requests": len(rows), "batches": replier.batches,
+            "launches": launches, "replies_bit_equal": True,
+            "requests_per_s": len(rows) / serve_s}
+
+
+def phase_serving(torch, env, dev="cuda"):
+    """The serving path: (a) SLICE_CFG through serve_continuous with every
+    bucket captured before the source opens, (b) a warm restart of the
+    worker from the bundle, (c) TorchModel.transform over graphs, (d)
+    serve_pipeline over a level-wise booster."""
+    import tempfile
+    from mmlspark_tpu_torch import telemetry
+    from mmlspark_tpu_torch.io.serving import (BucketPolicy,
+                                               FusedServingStep,
+                                               save_bundle, serve_continuous)
+    from mmlspark_tpu_torch.ops.flash_attention import flash_attention_fwd
+    t_phase = time.perf_counter()
+    params = slice_params(np.random.default_rng(SEED))
+    step = FusedServingStep(
+        SLICE_CFG, params, row_shape=(SEQ,), in_dtype=np.int32,
+        output="scores", device=dev,
+        policy=BucketPolicy(max_batch=SERVE_MAX_BATCH, min_bucket=1))
+    telemetry.enable()
+    telemetry.registry.reset()
+    try:
+        t0 = time.perf_counter()
+        source, loop = serve_continuous(step)    # captures, then opens
+        capture_s = time.perf_counter() - t0
+        check(step.warm_buckets() == step.policy.buckets == [1, 2, 4, 8, 16]
+              and step.compiles() == 5,
+              f"warm buckets {step.warm_buckets()} after serve_continuous")
+        try:
+            rng = np.random.default_rng(SEED + 22)
+            rows = rng.integers(0, SLICE_CFG["vocab_size"],
+                                size=(SERVE_REQUESTS, SEQ), dtype=np.int32)
+            payloads = b64_rows(rows)
+            replays0 = {b: step.executable(b).replays
+                        for b in step.policy.buckets}
+            flash_attention_fwd.launches = 0
+            t0 = time.perf_counter()
+            bodies = post_replies(source.url, payloads, SERVE_CONCURRENCY)
+            traffic_s = time.perf_counter() - t0
+            launches = flash_attention_fwd.launches
+            dispatches = {b: step.executable(b).replays - replays0[b]
+                          for b in step.policy.buckets}
+            misses = metric(telemetry,
+                            "mmlspark_serving_exec_cache_misses_total")
+            loops = [closed_loop(source.url, payloads[:SERVE_LATENCY_REQS],
+                                 c) for c in SERVE_CLIENTS]
+        finally:
+            loop.stop()
+            source.close()
+    finally:
+        telemetry.disable()
+    n_disp = sum(dispatches.values())
+    if dev == "cuda":
+        check(launches == SLICE_CFG["layers"] * n_disp,
+              f"row 1 launched {launches} times over {n_disp} dispatches")
+    check(misses == 0, f"{misses} cache misses under traffic")
+    scores = np.array([json.loads(b)["scores"] for b in bodies])
+    check(scores.shape == (SERVE_REQUESTS, SLICE_CFG["num_classes"])
+          and bool(np.isfinite(scores).all()), "reply scores")
+    eager = np.concatenate([
+        step.forward(torch.from_numpy(rows[lo:lo + SERVE_MAX_BATCH])
+                     .to(dev)).float().cpu().numpy()
+        for lo in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)])
+    worst = max(rel_l2(s, e) for s, e in zip(scores, eager))
+    check(worst <= TOL_SERVE_L2, f"a reply is {worst} (relative L2) from "
+          f"an eager forward of its row")
+    top2 = np.sort(eager, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > TOL_SERVE_GAP
+    check(bool((scores.argmax(1) == eager.argmax(1))[clear].all()),
+          "a reply's argmax differs where the eager top-two gap is clear")
+    buckets = serve_buckets(torch, step, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(tmp, step)
+        restart = serve_worker(torch, tmp, payloads[:SERVE_RESTART_REQS],
+                               loops[0]["bodies"][:SERVE_RESTART_REQS], dev)
+    graphs = serve_transform_graphs(torch, params, dev)
+    booster = serve_booster(torch, dev)
+    for lp in loops:
+        lp.pop("bodies")
+    emit({"phase": "serving", "config": SLICE_CFG, "seq": SEQ,
+          "policy": {"max_batch": SERVE_MAX_BATCH, "min_bucket": 1},
+          "capture_s": capture_s, "requests": SERVE_REQUESTS,
+          "concurrency": SERVE_CONCURRENCY, "traffic_s": traffic_s,
+          "requests_per_s": SERVE_REQUESTS / traffic_s,
+          "dispatches_by_bucket": dispatches, "flash_launches": launches,
+          "cache_misses": misses, "worst_rel_l2_vs_eager": worst,
+          "closed_loop": loops, "buckets": buckets,
+          "warm_restart": restart, "transform_graphs": graphs,
+          "booster": booster, "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+    return {"fwd": launches, "transform_graphs": graphs["flash_launches"],
+            "predict": booster["launches"]["predict"]}
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -3996,7 +4369,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
           "vision_train", "automl_tabular", "automl_text", "platform",
-          "ingest")
+          "ingest", "serving")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -4014,6 +4387,7 @@ PHASE_FNS = {
     "automl_text": phase_automl_text,
     "platform": phase_platform,
     "ingest": phase_ingest,
+    "serving": phase_serving,
 }
 
 
@@ -4077,13 +4451,15 @@ def main(argv=None) -> int:
     phase_automl_text(torch, env)
     phase_platform(torch, env)
     phase_ingest(torch, env)
+    serving = phase_serving(torch, env)
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],
                     "automl_fit": automl["node_hist_fit"],
                     "automl_tune": automl["node_hist_tune"]}
     predict_by_path = {"transform": gbdt["predict"],
-                       "automl_transform": automl["predict"]}
+                       "automl_transform": automl["predict"],
+                       "serve_pipeline": serving["predict"]}
     predict_lw_by_path = {"transform_leafwise": leafwise["predict_lw"],
                           "automl_tune": automl["predict_lw"]}
     csrc = "mmlspark_tpu_torch/ops/csrc/"
@@ -4093,7 +4469,10 @@ def main(argv=None) -> int:
          "source": csrc + "flash_attention_fwd.cu",
          "replaces": replaces + "45", "launches": train["fwd"],
          "launches_by_path": {"serve": serve_launches,
-                              "train": train["fwd"]},
+                              "train": train["fwd"],
+                              "serve_continuous": serving["fwd"],
+                              "transform_graphs":
+                                  serving["transform_graphs"]},
          "max_abs_err": worst["out"], "max_err": worst["out"],
          "max_lse_err": worst["lse"],
          "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],

@@ -30,12 +30,20 @@ zoo's packed artifacts through ``models.downloader.ModelDownloader``;
 ``models.image_featurizer.ImageFeaturizer``. It runs on cuDNN/cuBLAS
 through torch.
 
-Importing the package stays light: torch loads on first use of
-``TorchModel``, ``TorchLearner``, ``build_model`` or a LightGBM stage.
+The serving path (``io.http``, ``io.serving``): an HTTP source and loops,
+continuous batching with one CUDA graph per shape bucket, the serving
+bundle and the warm-restarting worker
+(``python -m mmlspark_tpu_torch.io.http.worker --bundle DIR``).
+
+Importing the package loads torch and registers the flash forward as the
+operator ``mmlspark_torch::flash_attention_fwd``, so a program that
+``TorchModel.exportStableHLO`` wrote loads with ``torch.export.load``;
+the model families and stages load on first use.
 """
 
 from .core.dataframe import DataFrame
 from .core.pipeline import Pipeline, PipelineModel
+from .ops import flash_attention as _flash_attention  # noqa: F401
 
 __all__ = ["DataFrame", "LightGBMClassificationModel", "LightGBMClassifier",
            "LightGBMRegressionModel", "LightGBMRegressor", "Pipeline",

@@ -43,6 +43,7 @@ def _ensure_registry_populated():
     import mmlspark_tpu_torch.automl.train_classifier  # noqa: F401
     import mmlspark_tpu_torch.automl.tune  # noqa: F401
     import mmlspark_tpu_torch.automl.value_indexer  # noqa: F401
+    import mmlspark_tpu_torch.io.http.transformer  # noqa: F401
     import mmlspark_tpu_torch.models.classical  # noqa: F401
     import mmlspark_tpu_torch.models.gbdt.stages  # noqa: F401
     import mmlspark_tpu_torch.models.image_featurizer  # noqa: F401

@@ -1,4 +1,4 @@
-"""IO layer of the PyTorch port (reference: src/io): the ingest half of
+"""IO layer of the PyTorch port (reference: src/io): the port of
 ``mmlspark_tpu/io``. ``readImages``/``readBinaryFiles`` mirror the
 reference's session implicits (io/src/main/scala/Readers.scala:14-45).
 
@@ -11,13 +11,15 @@ reference's session implicits (io/src/main/scala/Readers.scala:14-45).
   ``device_image_batches``: pinned staging and non-blocking copies to the
   card;
 * :mod:`arrow` — Arrow record batches to device tensors
-  (``arrow_feature_batches``) and DataFrames.
-
-Not ported here: ``http``, ``serving`` and ``powerbi`` (ROADMAP.md Queue 1
-item 10, serving half).
+  (``arrow_feature_batches``) and DataFrames;
+* :mod:`http` — the HTTP source, sink and serving loops, the worker
+  process and the client stages (over ``urllib``);
+* :mod:`serving` — continuous batching with one CUDA graph per bucket,
+  and the serving bundle;
+* :mod:`powerbi` — the PowerBI stream writer.
 """
 
-from . import arrow, binary, csv, image, loader
+from . import arrow, binary, csv, http, image, loader, powerbi, serving
 from .arrow import (arrow_feature_batches, arrow_frames, batch_to_matrix,
                     frame_from_arrow_stream)
 from .binary import read_binary_files, recurse_path
@@ -28,7 +30,8 @@ from .loader import device_image_batches, image_batches, list_images
 readImages = read_images
 readBinaryFiles = read_binary_files
 
-__all__ = ["arrow", "binary", "csv", "image", "loader",
+__all__ = ["arrow", "binary", "csv", "http", "image", "loader", "powerbi",
+           "serving",
            "arrow_feature_batches", "arrow_frames", "batch_to_matrix",
            "frame_from_arrow_stream", "read_binary_files", "recurse_path",
            "read_csv", "read_csv_matrix", "decode_image", "read_images",

@@ -14,9 +14,10 @@ dtype name, C-order bytes)``, numbers as msgpack ints and floats or ext
 type 3 (a numpy scalar). Anything else raises.
 
 Every transfer is checked against the schema's sha256 (reference:
-Schema.scala:34-40). The HTTP repository (``RemoteRepo``, a ``server_url``)
-waits for the port of ``io/http`` (ROADMAP.md Queue 1 item 10, serving
-half).
+Schema.scala:34-40). The HTTP repository (``RemoteRepo``, a
+``server_url``) reads a ``MANIFEST`` of schema files over the standard
+library's ``urllib`` (fault site ``downloader.fetch``), read-only, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import io
 import json
 import os
 import struct
+import urllib.request
 import zipfile
 from dataclasses import asdict, dataclass, field, replace
 from typing import Iterable, Optional
@@ -333,53 +335,75 @@ class LocalRepo(Repository):
         return schema.updateURI(path)
 
 
-def _no_http():
-    return NotImplementedError(
-        "the HTTP model repository (RemoteRepo, server_url) waits for the "
-        "port of io/http (ROADMAP.md Queue 1 item 10, serving half); use a "
-        "local repository directory")
-
-
 class RemoteRepo(Repository):
-    """The HTTP repository (DefaultModelRepo, ModelDownloader.scala:109-155):
-    not ported yet."""
+    """HTTP repo with a MANIFEST of schema files — the DefaultModelRepo CDN
+    layout (ModelDownloader.scala:109-155). Read-only."""
 
     def __init__(self, base_url: str, timeout: float = 60.0):
-        raise _no_http()
+        self.base_url = base_url.rstrip("/")
+        self.timeout = timeout
+
+    def _fetch(self, rel: str) -> bytes:
+        from ..resilience import faults
+        faults.inject("downloader.fetch")
+        if "://" not in rel:
+            # metas carry repo-relative names; tolerate absolute local paths
+            # from hand-written metas by falling back to the basename
+            rel = rel.lstrip("/") if not os.path.isabs(rel) else \
+                os.path.basename(rel)
+            rel = f"{self.base_url}/{rel}"
+        with urllib.request.urlopen(rel, timeout=self.timeout) as r:
+            return r.read()
+
+    def listSchemas(self) -> list:
+        names = self._fetch(MANIFEST).decode().split()
+        return [ModelSchema.fromJson(self._fetch(n).decode()) for n in names]
+
+    def getBytes(self, schema: ModelSchema) -> bytes:
+        return self._fetch(schema.uri)
+
+    def addBytes(self, schema, data):
+        raise NotImplementedError("remote repo is read-only "
+                                  "(ModelDownloader.scala:153-154)")
 
 
 # ------------------------------------------------------------- downloader
 
 class ModelDownloader:
-    """Hands repository models to TorchModel / ImageFeaturizer with hash
-    verification (reference: ModelDownloader.scala:157-230).
-    ``local_path`` is the local repository directory."""
+    """Transfers models remote -> local with hash verification and hands
+    them to TorchModel / ImageFeaturizer (reference:
+    ModelDownloader.scala:157-230). ``local_path`` is the local repository
+    directory; ``server_url`` the remote repository's base URL (the
+    reference's CDN baseURL, DefaultModelRepo:109)."""
 
     def __init__(self, local_path: str, server_url: Optional[str] = None):
-        if server_url:
-            raise _no_http()
         self.local = LocalRepo(local_path)
+        self.remote = RemoteRepo(server_url) if server_url else None
 
     def localModels(self) -> list:
         return self.local.listSchemas()
 
     def remoteModels(self) -> list:
-        raise _no_http()
+        if self.remote is None:
+            raise ValueError("no server_url configured")
+        return self.remote.listSchemas()
 
     def downloadModel(self, schema: ModelSchema) -> ModelSchema:
         """The local copy of ``schema``, its bytes checked against the
-        schema's sha256; written into the local repository when absent."""
+        schema's sha256; fetched from the remote repository (or read from
+        the local one) and written locally when absent."""
         for have in self.local.listSchemas():
             if (have.name, have.dataset, have.hash) == \
                     (schema.name, schema.dataset, schema.hash):
                 have.assertMatchingHash(self.local.getBytes(have))
                 return have
-        data = self.local.getBytes(schema)
+        data = (self.remote or self.local).getBytes(schema)
         schema.assertMatchingHash(data)
         return self.local.addBytes(schema, data)
 
     def downloadByName(self, name: str, dataset: str = "") -> ModelSchema:
-        for s in self.localModels():
+        pool = self.remoteModels() if self.remote else self.localModels()
+        for s in pool:
             if s.name == name and (not dataset or s.dataset == dataset):
                 return self.downloadModel(s)
         raise ModelNotFoundException(f"{name} (dataset={dataset!r})")

@@ -13,13 +13,21 @@ A float32 model config scores with TF32 off (full float32 products, as
 ``TorchLearner(precision="f32")`` trains); bf16 configs run on the tensor
 cores.
 
+Each chunk ships from pinned memory on a side copy stream and its output
+comes back the same way, at most two chunks in flight
+(``_dispatch_windowed``). ``warmup`` captures one CUDA graph per
+power-of-two bucket; ``transform`` replays it for batches of that bucket
+and runs eagerly otherwise. ``exportStableHLO`` writes a ``torch.export``
+program of the forward.
+
 Not ported yet, and raising when asked for: ``tensorParallel > 1`` (the
-``parallel/`` slice), ``exportStableHLO`` and ``capture`` (the capture
-slice), and the multi-host scoring path.
+``parallel/`` slice), ``capture`` (the capture slice), and the multi-host
+scoring path.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -217,15 +225,71 @@ class TorchModel(Transformer):
 
     def exportStableHLO(self, path: str, batch: Optional[int] = None,
                         in_dtype=None) -> str:
-        raise NotImplementedError(
-            "exportStableHLO is an XLA artifact; the port's deployment "
-            "artifact waits for the serving-bundle port (ROADMAP.md Queue 1 "
-            "item 10, serving half)")
+        """Write the inference program as a deployment artifact: a
+        ``torch.export`` program of the module's forward at batch
+        ``batch`` (default miniBatchSize), saved with ``torch.export.save``
+        to ``path`` and loadable with ``torch.export.load`` once
+        ``mmlspark_tpu_torch`` is imported (which registers the flash
+        forward as the operator ``mmlspark_torch::flash_attention_fwd``).
+        The name is the JAX package's, whose artifact is StableHLO text;
+        the port's runs under PyTorch without this package's Python.
+
+        The program takes the wire batch ``transform`` ships and returns
+        float32 scores. Its input dtype follows the JAX package's rules:
+        int32 for token models; uint8 for image-shaped models fed image
+        columns; otherwise float32 (bfloat16 under transferDtype).
+        Flat-vector inputs (inputShape set) always arrive as floats. Pass
+        ``in_dtype`` (a numpy dtype or "bfloat16") to override. The
+        program is traced on ``device``."""
+        if self.getModelParams() is None:
+            raise ValueError("TorchModel has no params; set modelParams or "
+                             "call setModelLocation before exporting")
+        cfg = self.getModelConfig()
+        from .modules import TOKEN_MODELS, example_input, sized_for
+        b = batch or self.getMiniBatchSize()
+        if self.getInputShape():
+            # the serving shape: _prep_input reshapes CHW vectors to NHWC
+            c, h, w = self.getInputShape()
+            row_shape = (h, w, c)
+        else:
+            row_shape = tuple(example_input(cfg).shape[1:])
+        if in_dtype is None:
+            if cfg.get("type") in TOKEN_MODELS:
+                in_dtype = np.int32
+            elif (cfg.get("type") in ("convnet", "resnet", "resnet50")
+                  and not self.getInputShape()):
+                in_dtype = np.uint8  # image rows ship as bytes
+            elif self.getTransferDtype() == "bfloat16":
+                in_dtype = "bfloat16"
+            else:
+                in_dtype = np.float32
+        wire = (torch.bfloat16 if str(in_dtype) in ("bfloat16", "bf16")
+                else torch.from_numpy(np.zeros(0, in_dtype)).dtype)
+        dev = self._device()
+        module = self._device_module(dev, sized_for(cfg, (b,) + row_shape))
+        program = _WireForward(module, self.getOutputLayer() or None)
+        example = torch.zeros((b,) + row_shape, dtype=wire, device=dev)
+        with torch.no_grad():
+            exported = torch.export.export(program, (example,))
+        torch.export.save(exported, path)
+        return path
 
     def capture(self, columns):
         raise NotImplementedError(
             "cross-stage capture waits for the port of core/capture.py "
             "(ROADMAP.md Queue 1 item 11)")
+
+    def setModelParams(self, value) -> "TorchModel":
+        """New weights: the device module and every captured graph of the
+        old ones are dropped here, not at the next transform."""
+        self._drop_graphs()
+        self.__dict__.pop("_dev_module", None)
+        self.__dict__.pop("_dev_params_src", None)
+        return self.set(modelParams=value)
+
+    def _drop_graphs(self):
+        self._graphs = {}
+        self._graph_lane = None
 
     # ---- device state ----
     def _device(self) -> torch.device:
@@ -238,7 +302,7 @@ class TorchModel(Transformer):
         every weight each time would dominate request latency. Validity is
         object identity through STRONG references, so a new params object
         can never alias a freed one; updating weights means setModelParams
-        (a new object)."""
+        (a new object). A new module drops the graphs of the old one."""
         host = self.getModelParams()
         key = (json.dumps(cfg, sort_keys=True, default=str), str(dev))
         if (getattr(self, "_dev_params_src", None) is not host
@@ -249,10 +313,26 @@ class TorchModel(Transformer):
             with torch.device(dev):
                 module = build_model(cfg)
             module.load_state_dict(sd, strict=True)
+            self._drop_graphs()
             self._dev_module = module.eval().requires_grad_(False)
             self._dev_params_src = host
             self._dev_module_key = key
         return self._dev_module
+
+    def _graph_fn(self, module, ol: Optional[str]):
+        """The profiler's AOT cache of ``module``'s forward with output
+        layer ``ol``: one CUDA graph per signature (pow2 bucket, wire
+        dtype), all of this model's graphs in one memory pool. Built per
+        device module (params object, sized config, device), so the cache
+        key is theirs plus the bucket, the wire dtype and outputLayer."""
+        pf = self._graphs.get(ol)
+        if pf is None:
+            if self._graph_lane is None:
+                self._graph_lane = telemetry.profiler.GraphLane()
+            pf = self._graphs[ol] = telemetry.profiler.wrap(
+                _WireForward(module, ol, self.getTransferDtype()),
+                "torch_model.transform", aot=True, lane=self._graph_lane)
+        return pf
 
     # ---- scoring ----
     def warmup(self, example_df: DataFrame, max_rows: Optional[int] = None
@@ -260,7 +340,10 @@ class TorchModel(Transformer):
         """Run every bucketed batch shape up to ``max_rows`` (default
         miniBatchSize) once on tiled copies of ``example_df``'s first row,
         so weights are on the device and kernels are built and loaded
-        before the first client request."""
+        before the first client request. On a CUDA device each bucket's
+        forward is captured as one CUDA graph, which ``transform`` then
+        replays for batches of that bucket (one launch instead of one per
+        op); nothing else captures."""
         row = {k: example_df.col(k)[:1] for k in example_df.columns}
         cap = min(self.getMiniBatchSize(),
                   _next_pow2(max_rows or self.getMiniBatchSize()))
@@ -269,13 +352,16 @@ class TorchModel(Transformer):
             n = min(t, cap)
             tiled = DataFrame({k: np.concatenate([v] * n)
                                for k, v in row.items()})
-            self.transform(tiled)
+            self._score(tiled, capture=True)
             if t >= cap:
                 break
             t <<= 1
         return self
 
     def transform(self, df: DataFrame) -> DataFrame:
+        return self._score(df, capture=False)
+
+    def _score(self, df: DataFrame, capture: bool) -> DataFrame:
         if self.getModelParams() is None:
             raise ValueError("TorchModel has no params; set modelParams or "
                              "call setModelLocation")
@@ -302,9 +388,8 @@ class TorchModel(Transformer):
                   if len(x) else None)
         ol = self.getOutputLayer() or None
         bs = self.getMiniBatchSize()
-        outs = []
-        f32 = resolve_dtype(cfg.get("dtype")) == torch.float32
-        with torch.inference_mode(), full_precision_matmuls(f32):
+
+        def chunks():
             for lo in range(0, len(x), bs):
                 chunk = x[lo:lo + bs]
                 n_real = len(chunk)
@@ -316,15 +401,90 @@ class TorchModel(Transformer):
                     filler = np.zeros((target - n_real,) + chunk.shape[1:],
                                       chunk.dtype)
                     chunk = np.concatenate([chunk, filler])
-                xb = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev)
-                if xb.dtype == torch.int32:
-                    xb = xb.long()             # nn.Embedding takes int64 ids
-                elif (xb.dtype == torch.float32
-                      and self.getTransferDtype() == "bfloat16"):
-                    xb = xb.to(torch.bfloat16)
-                y = module(xb, output_layer=ol)
-                outs.append(y[:n_real].float().cpu().numpy())
-        y = np.concatenate(outs, axis=0) if outs else np.empty((0,))
+                yield np.ascontiguousarray(chunk), n_real
+
+        f32 = resolve_dtype(cfg.get("dtype")) == torch.float32
+        y = np.empty((0,))
+        if module is not None:
+            eager = _WireForward(module, ol, self.getTransferDtype())
+            graphs = (self._graph_fn(module, ol) if dev.type == "cuda"
+                      else None)
+
+            def run(xb):
+                if graphs is not None and capture:
+                    graphs.aot_compile(xb)
+                if graphs is not None and graphs.is_cached(xb):
+                    return graphs(xb)
+                return eager(xb)
+
+            with torch.inference_mode(), full_precision_matmuls(f32):
+                y = self._dispatch_windowed(chunks(), run, dev)
         if y.ndim == 1:
             return df.withColumn(self.getOutputCol(), y)
         return df.withColumn(self.getOutputCol(), object_column(y))
+
+    def _dispatch_windowed(self, chunks, run, dev: torch.device,
+                           window: int = 2) -> np.ndarray:
+        """The dispatch loop of ``transform`` (the counterpart of the JAX
+        package's ``TpuModel._dispatch_windowed``): each ``(padded chunk,
+        n_real)`` ships from pinned host memory on a side copy stream and
+        runs through ``run`` on the compute (current) stream once its copy
+        is done; its output is copied device-to-host, non-blocking, into
+        pinned memory and read after its event. At most ``window`` chunks
+        are in flight, so the next chunk's copy overlaps the current
+        one's compute and device memory holds ~window chunks, not the
+        dataset. On the CPU the chunks simply run in turn."""
+        outs: list = []
+        if dev.type != "cuda":
+            for chunk, n_real in chunks:
+                outs.append(run(torch.from_numpy(chunk))[:n_real].numpy())
+            return (np.concatenate(outs, axis=0) if outs
+                    else np.empty((0,)))
+        compute = torch.cuda.current_stream(dev)
+        copy = torch.cuda.Stream(dev)
+        pending: collections.deque = collections.deque()
+
+        def drain():
+            host, n_real, done = pending.popleft()
+            done.synchronize()
+            outs.append(host[:n_real].numpy())
+
+        for chunk, n_real in chunks:
+            if len(pending) >= window:
+                drain()
+            staged = torch.from_numpy(chunk).pin_memory()
+            with torch.cuda.stream(copy):
+                xb = staged.to(dev, non_blocking=True)
+            compute.wait_stream(copy)
+            xb.record_stream(compute)
+            y = run(xb)
+            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            host.copy_(y, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(compute)
+            pending.append((host, n_real, done))
+        while pending:
+            drain()
+        return np.concatenate(outs, axis=0) if outs else np.empty((0,))
+
+
+class _WireForward(torch.nn.Module):
+    """The module's forward from a wire batch: int32 token ids become the
+    int64 ids ``nn.Embedding`` takes, float32 rows become bfloat16 under
+    ``transferDtype="bfloat16"``, and the output is float32 — one function
+    that transform runs eagerly, captures as a CUDA graph per bucket, and
+    exports."""
+
+    def __init__(self, module, output_layer: Optional[str] = None,
+                 transfer_dtype: str = "float32"):
+        super().__init__()
+        self.module = module
+        self.output_layer = output_layer
+        self.bf16_wire = transfer_dtype == "bfloat16"
+
+    def forward(self, xb):
+        if xb.dtype == torch.int32:
+            xb = xb.long()
+        elif xb.dtype == torch.float32 and self.bf16_wire:
+            xb = xb.to(torch.bfloat16)
+        return self.module(xb, output_layer=self.output_layer).float()

@@ -30,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict = {}  # guarded-by: _lock — name -> ctypes.CDLL
+#: nvcc processes this process started (a warm restart from a serving
+#: bundle must start none)
+builds = 0
 
 
 def kernel_names() -> list[str]:
@@ -62,6 +65,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> dict:
     compiler's register/shared-memory/spill report, kept beside the library
     (``.ptxas``) so a library built earlier still has it. Raises
     RuntimeError naming every failed source."""
+    global builds
     names = list(names or kernel_names())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -76,6 +80,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> dict:
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        builds += 1
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        so, tmp)

@@ -280,7 +280,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
             B, H, Tq, Tk, D, int(bool(causal)),
             float(scale), _DTYPE_CODE[q.dtype], stream)
     _raise_on(rc, lib, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    profiler.count_launch(flash_attention_fwd, library="flash_attention_fwd")
     profiler.note_kernel(*attention_costs(B, H, Tq, Tk, D, causal,
                                           q.element_size())["fwd"])
     return out, lse
@@ -392,7 +392,8 @@ class _BwdLaunch:
                 self.maps, *self.ins, self.dq.data_ptr(), *self.shape,
                 self._stream())
         _raise_on(rc, self.lib, "flash_attention_bwd (dq)")
-        flash_attention_bwd.launches_dq += 1
+        profiler.count_launch(flash_attention_bwd, "launches_dq",
+                              "flash_attention_bwd")
         profiler.note_kernel(*self.costs["dq"])
 
     def dkv_kernel(self):
@@ -401,7 +402,8 @@ class _BwdLaunch:
                 self.maps, *self.ins, self.dk.data_ptr(), self.dv.data_ptr(),
                 *self.shape, self._stream())
         _raise_on(rc, self.lib, "flash_attention_bwd (dk/dv)")
-        flash_attention_bwd.launches_dkv += 1
+        profiler.count_launch(flash_attention_bwd, "launches_dkv",
+                              "flash_attention_bwd")
         profiler.note_kernel(*self.costs["dkv"])
 
 
@@ -478,8 +480,36 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@torch.library.custom_op(
+    "mmlspark_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float? scale) "
+           "-> (Tensor, Tensor)")
+def flash_attention_fwd_op(q, k, v, causal, scale):
+    """The forward as a registered operator, so ``torch.export`` can trace
+    a model through it (it cannot trace the ``ctypes`` launch): on CUDA
+    tensors the kernel wrapper :func:`flash_attention_fwd` (which counts
+    the launch), on CPU tensors :func:`flash_attention_reference`.
+    Returns fresh ``(out, lse)``."""
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    return out.contiguous(), lse
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, scale):
+    B, Tq, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B * H, Tq), dtype=_acc_dtype(q)))
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None):
     """FlashAttention: q/k/v (B, T, H, D) -> (B, Tq, H, D), differentiable
-    (the backward runs the dq and dk/dv kernels on CUDA tensors)."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    (the backward runs the dq and dk/dv kernels on CUDA tensors). Where no
+    gradient is taken (inference, ``torch.export``, a CUDA graph capture)
+    it calls the registered operator ``mmlspark_torch::flash_attention_fwd``;
+    training keeps the autograd function and its two backward kernels."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return torch.ops.mmlspark_torch.flash_attention_fwd(q, k, v, causal,
+                                                        scale)[0]

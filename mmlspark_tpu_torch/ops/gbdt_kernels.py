@@ -341,6 +341,15 @@ def node_histogram_reference(bins_t, node, g, h, n_nodes: int,
     return bsum(g), bsum(h)
 
 
+def unit_row_stride(bins_t) -> bool:
+    """Whether the predict kernels can step the rows of ``bins_t`` (F, N)
+    one byte at a time. A single row is never stepped: ``.T.contiguous()``
+    of a (1, F) matrix keeps its (1, F) strides (PyTorch calls that
+    contiguous), and the kernels read its F bytes through the feature
+    stride, 1, with byte loads (``load4`` past the last row)."""
+    return bins_t.shape[1] <= 1 or bins_t.stride(1) == 1
+
+
 def mxu_node_histogram(bins_t, node, g, h, *, n_nodes: int,
                        n_bins: int = 256):
     """Per-(node, feature, bin) grad/hess histograms.
@@ -546,7 +555,7 @@ def gbdt_predict_quant_levelwise(bins_t, feature, threshold, leaf, *,
                          f"tensors, not {bins_t.device}")
     d, n = bins_t.shape
     T, K, _ = feature.shape
-    if bins_t.dtype != torch.uint8 or bins_t.stride(1) != 1:
+    if bins_t.dtype != torch.uint8 or not unit_row_stride(bins_t):
         raise ValueError("the CUDA kernel reads uint8 bins_t with unit row "
                          "stride")
     if feature.dtype != torch.uint8 or threshold.dtype != torch.uint8 \
@@ -729,7 +738,7 @@ def gbdt_predict_quant_leafwise(bins_t, split_leaf, feature, threshold,
                          f"tensors, not {bins_t.device}")
     d, n = bins_t.shape
     T, K, R = split_leaf.shape
-    if bins_t.dtype != torch.uint8 or bins_t.stride(1) != 1:
+    if bins_t.dtype != torch.uint8 or not unit_row_stride(bins_t):
         raise ValueError("the CUDA kernel reads uint8 bins_t with unit row "
                          "stride")
     if split_leaf.dtype != torch.int32 or feature.dtype != torch.uint8 \

@@ -25,9 +25,10 @@ Chrome-trace JSON-lines at interpreter exit; ``snapshot()`` returns the
 registry as JSON and ``prometheus_text()`` in Prometheus text format.
 Each package keeps its own registry and reads the same switches.
 
-Not ported here: ``federation`` (the fleet-wide scrape, ROADMAP.md Queue 1
-item 13b) and the ``GET /metrics`` endpoint of the HTTP serving layer
-(item 10, serving half).
+Every serving process answers ``GET /metrics`` with
+``prometheus_text()`` (``io.http.server``, ``io.http.worker``). Not
+ported here: ``federation`` (the fleet-wide scrape, ROADMAP.md Queue 1
+item 13b).
 """
 
 from __future__ import annotations

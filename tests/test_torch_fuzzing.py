@@ -3,7 +3,8 @@
 The port's counterpart of tests/test_fuzzing.py:312-330 (the reference's
 FuzzingTest.scala:25-130): every concrete non-Model stage in the port's
 registry (``core.pipeline.registered_stages()``, slices 1-11) registers a
-TestObject factory below, and each runs the experiment fuzz (fit/transform
+TestObject factory below (the HTTP client stages of slice 13 included),
+and each runs the experiment fuzz (fit/transform
 execute) and the serialization fuzz (save/load of the stage and of its
 fitted model, outputs equal within rtol 1e-4 / atol 1e-5) over the port's
 ``save_stage``/``load_stage``. Models are exercised through their
@@ -23,6 +24,11 @@ from mmlspark_tpu_torch.core.pipeline import Model, registered_stages
 from mmlspark_tpu_torch.core.schema import (CategoricalUtilities,
                                             make_image_row)
 from mmlspark_tpu_torch.core.utils import object_column
+from mmlspark_tpu_torch.io.http import (CustomInputParser, CustomOutputParser,
+                                        HTTPTransformer, JSONInputParser,
+                                        JSONOutputParser,
+                                        SimpleHTTPTransformer,
+                                        StringOutputParser)
 from mmlspark_tpu_torch.models import classical, trainer
 from mmlspark_tpu_torch.models.gbdt import stages as gbdt
 from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
@@ -265,6 +271,41 @@ def _flatten():
 
 
 _t(FlattenBatch, _flatten)
+
+
+# the HTTP client stages (slice 13). The JAX package exempts the two
+# clients from fuzzing; here they run against a closed local port, where
+# every row fails the same way (statusCode 0 and the connection error)
+_REQ = DataFrame({"data": object_column([{"x": 1}, {"x": 2}])})
+_RESP = DataFrame({"resp": object_column(
+    [{"statusCode": 200, "body": '{"y": 2}'}])})
+_CLOSED = "http://127.0.0.1:9/x"
+
+
+def _ident(v):  # module-level so the UDF pickles by reference
+    return v
+
+
+_t(JSONInputParser, lambda: TestObject(
+    JSONInputParser().setInputCol("data").setOutputCol("req")
+    .setUrl(_CLOSED), _REQ))
+_t(JSONOutputParser, lambda: TestObject(
+    JSONOutputParser().setInputCol("resp").setOutputCol("out"), _RESP))
+_t(StringOutputParser, lambda: TestObject(
+    StringOutputParser().setInputCol("resp").setOutputCol("out"), _RESP))
+_t(CustomInputParser, lambda: TestObject(
+    CustomInputParser().setInputCol("data").setOutputCol("req")
+    .setUdf(_ident), _REQ))
+_t(CustomOutputParser, lambda: TestObject(
+    CustomOutputParser().setInputCol("resp").setOutputCol("out")
+    .setUdf(_ident), _RESP))
+_t(HTTPTransformer, lambda: TestObject(
+    HTTPTransformer().setInputCol("req").setOutputCol("resp")
+    .setTimeout(2.0), JSONInputParser().setInputCol("data")
+    .setOutputCol("req").setUrl(_CLOSED).transform(_REQ)))
+_t(SimpleHTTPTransformer, lambda: TestObject(
+    SimpleHTTPTransformer().setInputCol("data").setOutputCol("out")
+    .setUrl(_CLOSED), _REQ))
 
 
 # ------------------------------------------------------------ coverage gate

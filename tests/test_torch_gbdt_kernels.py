@@ -852,3 +852,15 @@ def test_leafwise_path_lengths_count_the_replay_rounds_that_match():
         assert np.array_equal(leaves[t, 0].numpy(), pos)
     assert int(steps.max()) == 127
     assert bool((steps == 127).float().mean() > 0.3)
+
+
+def test_single_row_bins_need_no_row_stride():
+    """A one-row transform (a serving loop's batch of one) bins into
+    ``bins.T.contiguous()`` of shape (F, 1), which keeps the (1, F)
+    strides: the predict wrappers take it (the kernels read its F bytes
+    through the feature stride), and a real (F, N) view with a row stride
+    other than 1 is still refused."""
+    t = torch.zeros((1, 28), dtype=torch.uint8).T.contiguous()
+    assert t.stride() == (1, 28) and gk.unit_row_stride(t)
+    assert gk.unit_row_stride(torch.zeros((28, 5), dtype=torch.uint8))
+    assert not gk.unit_row_stride(torch.zeros((5, 28), dtype=torch.uint8).T)

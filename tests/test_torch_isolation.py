@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: ``mmlspark_tpu_torch`` and ``chip_smoke.py``
 import no jax, flax or optax, and nothing of the JAX package — only the
 tests import both. Nor do they import sklearn, pandas, pyarrow,
-matplotlib, cv2 or PIL when a module is imported (the card's machine has
-none of them): such an import may only sit inside the function that needs
+matplotlib, cv2, PIL or requests when a module is imported (the card's
+machine has none of them): such an import may only sit inside the function that needs
 it (``DataFrame.fromPandas``, ``plot.confusionMatrix``, ``io.arrow``'s
 readers, ``io.image``'s GIF/TIFF/WebP decode). Nor does any port file name
 a path under the JAX package (the native runtime's C++ sources are the
@@ -22,7 +22,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mmlspark_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
 NOT_ON_THE_CARD = ("sklearn", "pandas", "pyarrow", "matplotlib", "cv2",
-                   "PIL")
+                   "PIL", "requests")
 
 
 def _imported_modules(path: Path) -> set:
@@ -96,7 +96,18 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.native, mmlspark_tpu_torch.io, "
             "mmlspark_tpu_torch.io.arrow, mmlspark_tpu_torch.io.loader, "
             "mmlspark_tpu_torch.io.image, "
-            "mmlspark_tpu_torch.resilience.ckpt; "
+            "mmlspark_tpu_torch.resilience.ckpt, "
+            "mmlspark_tpu_torch.io.http, "
+            "mmlspark_tpu_torch.io.http.server, "
+            "mmlspark_tpu_torch.io.http.transformer, "
+            "mmlspark_tpu_torch.io.http.distributed, "
+            "mmlspark_tpu_torch.io.http.worker, "
+            "mmlspark_tpu_torch.io.powerbi, "
+            "mmlspark_tpu_torch.io.serving, "
+            "mmlspark_tpu_torch.io.serving.batcher, "
+            "mmlspark_tpu_torch.io.serving.step, "
+            "mmlspark_tpu_torch.io.serving.engine, "
+            "mmlspark_tpu_torch.io.serving.bundle; "
             "mmlspark_tpu_torch.core.serialize._ensure_registry_populated(); "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -190,6 +190,10 @@ def test_cuda_device_without_a_card_raises(flax_params):
 
 
 def test_unported_paths_raise(flax_params, tmp_path):
+    """tensorParallel and MoE still refuse; the HTTP repository and the
+    export artifact, refused until the serving slice, now work (held in
+    tests/test_torch_zoo.py and below): an unset model refuses to export,
+    and a server_url makes a RemoteRepo."""
     df, _ = _score_frames(rows=3)
     model = TorchModel(inputCol="tokens", modelConfig=CFG, device="cpu",
                        modelParams=flax_params, tensorParallel=2)
@@ -197,11 +201,13 @@ def test_unported_paths_raise(flax_params, tmp_path):
         model.transform(df)
     with pytest.raises(NotImplementedError):
         build_model(dict(CFG, num_experts=4))
-    from mmlspark_tpu_torch.models.downloader import ModelDownloader
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ModelDownloader(str(tmp_path / "repo"), server_url="http://zoo")
-    with pytest.raises(NotImplementedError):
-        TorchModel().exportStableHLO(str(tmp_path / "x.mlir"))
+    from mmlspark_tpu_torch.models.downloader import (ModelDownloader,
+                                                      RemoteRepo)
+    dl = ModelDownloader(str(tmp_path / "repo"), server_url="http://zoo")
+    assert isinstance(dl.remote, RemoteRepo)
+    assert dl.remote.base_url == "http://zoo"
+    with pytest.raises(ValueError, match="no params"):
+        TorchModel().exportStableHLO(str(tmp_path / "x.pt2"))
 
 
 def test_shape_and_token_range_errors(flax_params):
@@ -237,3 +243,67 @@ def test_coerce_wire_dtype_matches_jax(values):
     out = _coerce_wire_dtype(values)
     assert out.dtype == ref.dtype
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("rows", [0, 1, 7, 8, 29])
+def test_windowed_dispatch_matches_tpu_model(flax_params, rows):
+    """transform runs every chunk through ``_dispatch_windowed``: 0, 1,
+    bs - 1, bs and 3 bs + 5 rows (bs = 8) give the JAX package's scores
+    within TOL, and the windowed loop gives the bits of one chunk at a
+    time."""
+    df, jdf = _score_frames(rows=max(rows, 1), seed=7)
+    if rows == 0:
+        df = DataFrame({"tokens": np.zeros((0, T), np.int32)})
+    common = dict(inputCol="tokens", outputCol="scores", modelConfig=dict(
+        CFG, dtype="float32", attn_impl="flash"), miniBatchSize=8)
+    model = TorchModel(modelParams=flax_params, device="cpu", **common)
+    calls = []
+    run_windowed = model._dispatch_windowed
+
+    def spy(chunks, run, dev, window=2):
+        chunks = list(chunks)
+        calls.append([len(c) for c, _ in chunks])
+        return run_windowed(iter(chunks), run, dev, window)
+
+    model._dispatch_windowed = spy
+    out = model.transform(df).col("scores")
+    if rows == 0:
+        assert len(out) == 0 and calls == []
+        return
+    got = np.stack(out)
+    assert got.shape == (rows, CFG["num_classes"])
+    assert calls == [[8] * (rows // 8) + ([_next_pow2(rows % 8)]
+                                          if rows % 8 else [])]
+    ref = np.stack(TpuModel(modelParams=flax_params, **common)
+                   .transform(jdf).col("scores"))
+    np.testing.assert_allclose(got, ref, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    toks = np.stack(df.col("tokens"))
+    one = np.concatenate([np.stack(model.transform(DataFrame(
+        {"tokens": list(toks[lo:lo + 8])})).col("scores"))
+        for lo in range(0, rows, 8)])
+    np.testing.assert_array_equal(got, one)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_artifact_scores_like_transform(flax_params, dtype, tmp_path):
+    """exportStableHLO -> torch.export.load -> the same scores as
+    transform, through the registered flash operator on the CPU. The
+    exported sequence length is the config's ``seq_len``, as the JAX
+    package's export reads it."""
+    cfg = dict(CFG, dtype=dtype, attn_impl="flash", seq_len=T)
+    model = TorchModel(inputCol="tokens", modelConfig=cfg, device="cpu",
+                       modelParams=flax_params, miniBatchSize=8)
+    path = model.exportStableHLO(str(tmp_path / "model.pt2"), batch=8)
+    program = torch.export.load(path)
+    assert any("mmlspark_torch.flash_attention_fwd" in str(n.target)
+               for n in program.graph.nodes)
+    df, _ = _score_frames(rows=8, seed=9)
+    toks = torch.from_numpy(np.stack(df.col("tokens")).astype(np.int32))
+    with torch.inference_mode():
+        got = program.module()(toks).numpy()
+    want = np.stack(model.transform(df).col("scores"))
+    np.testing.assert_allclose(got, want, atol=TOL["float32"], rtol=0)
+    (spec,) = [n for n in program.graph.nodes if n.op == "placeholder"
+               and n.name.startswith("xb")] or [None]
+    assert spec is None or spec.meta["val"].dtype == torch.int32

@@ -172,11 +172,59 @@ def test_model_directory_with_flax_msgpack_loads(tmp_path):
     _same_tree(model.getModelParams(), params)
 
 
-def test_http_repository_waits_for_io():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        downloader.ModelDownloader("/nonexistent", server_url="http://x")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        downloader.RemoteRepo("http://x")
+@pytest.fixture
+def http_zoo(tmp_path):
+    """A copy of zoo/ (its MANIFEST lists the schema files), served by
+    ``http.server`` on 127.0.0.1 for the test's duration."""
+    import functools
+    import threading
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+    root = tmp_path / "served"
+    shutil.copytree(ZOO, root)
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(
+        Quiet, directory=str(root)))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        yield root, f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_http_repository_waits_for_io(http_zoo, tmp_path):
+    """The HTTP repository, once refused until io/http was ported: a
+    RemoteRepo reads the MANIFEST's schemas, ModelDownloader(server_url=)
+    fetches a model into the local repository with its sha256 checked (the
+    JAX package's downloader gets the same bytes from the same server), and
+    a schema whose hash does not match the served bytes raises."""
+    root, url = http_zoo
+    remote = downloader.RemoteRepo(url)
+    names = {(s.name, s.dataset) for s in remote.listSchemas()}
+    assert ("ResNet20", "shapes10") in names
+    with pytest.raises(NotImplementedError, match="read-only"):
+        remote.addBytes(remote.listSchemas()[0], b"")
+    dl = downloader.ModelDownloader(str(tmp_path / "local"), server_url=url)
+    assert dl.localModels() == []
+    got = dl.downloadByName("ResNet20", "shapes10")
+    data = open(got.uri, "rb").read()
+    assert data == (root / "ResNet20_shapes10.model").read_bytes()
+    want = jax_downloader.ModelDownloader(
+        str(tmp_path / "jax"), server_url=url).downloadByName(
+            "ResNet20", "shapes10")
+    assert open(want.uri, "rb").read() == data
+    assert [s.name for s in dl.localModels()] == ["ResNet20"]
+    model = TorchModel(device="cpu").setModelSchema(got)
+    assert model.getModelConfig()["type"] == "resnet"
+    bad = [s for s in remote.listSchemas() if s.dataset == "digits8"][0]
+    with pytest.raises(ValueError, match="does not match"):
+        downloader.ModelDownloader(str(tmp_path / "other"), server_url=url
+                                   ).downloadModel(
+            downloader.ModelSchema(**{**bad.__dict__, "hash": "0" * 64}))
 
 
 # -------------------------------------------------------------- serving
