@@ -278,6 +278,34 @@ Phases, each printing one JSON line:
    (262,144 rows, 20 iterations): 64 JSON requests of 28 floats, replies
    equal to ``transform``'s bit for bit, row 5 launched once per polling
    batch.
+18. fusion — whole-pipeline capture (``core/capture.py``, ``FUSION_*``).
+   (a) the gbdt slice's 1M x 28 draws as 28 raw float32 columns (NaN in
+   every 7th row of three) through CleanMissingData -> FastVectorAssembler
+   -> ``LightGBMClassifier()`` (depthwise 5, 100 trees), fitted staged and
+   with ``fusePipeline``: booster states equal key for key, bit for bit,
+   500 node-histogram launches in each fit, one fused dispatch per binning
+   slab, no fallback; both fits' seconds and the fit-phase upload bytes.
+   (b) the same leaf-wise (31 leaves): equal states, 3100 launches each.
+   (c) (a)'s fused PipelineModel over the 1M rows: one segment, one
+   dispatch, the level-wise predict kernel launched 0 times (the dense
+   walk replaces it), a second transform a replay; columns within 1e-6 of
+   the staged dense transform's, and against the staged quantized predict
+   as the gbdt phase holds it; (b)'s leaf-wise booster between two
+   segments: the leaf-wise predict once, outputs equal to the staged
+   transform's. (d) bench.py's ResNet-20 (batch 12288) over 4 batches of
+   raw uint8 CHW pixels: FastVectorAssembler(("pixels",)) ->
+   ``TorchLearner(inputShape=(3, 32, 32))`` staged and fused, scan and feed
+   paths, cuDNN deterministic: parameters equal bit for bit, the fused
+   feature upload a quarter of the staged one on both counters, one
+   capture per fused program, each path's step ms. (e) ``fitStreamCaptured``
+   over the raw batches equal to ``fitStream`` over the staged ones. (f)
+   (a)'s booster behind an assembler over one 28-wide wire column as
+   ``FusedServingStep.from_pipeline`` (buckets 1..16) behind
+   ``serve_continuous``: 256 requests at concurrency 8, replies equal to the
+   pipeline's transform, no kernel of the table launched, every bucket's
+   replay equal to eager bit for bit; requests/s, p50/p99 of a closed loop
+   of 8 clients; ``save_bundle`` -> a restarted worker warm with 0 captures
+   and 0 nvcc runs.
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -466,6 +494,23 @@ SERVE_MAX_BATCH, SERVE_REQUESTS, SERVE_CONCURRENCY = 16, 256, 8
 SERVE_CLIENTS, SERVE_LATENCY_REQS, SERVE_RESTART_REQS = (1, 4, 8), 64, 32
 SERVE_GBDT_ROWS, SERVE_GBDT_REQUESTS = INGEST_CSV_ROWS, 64
 TOL_SERVE_L2, TOL_SERVE_GAP = 2e-2, 5e-2
+# the fusion phase (core/capture.py): the GBDT slice's 1M x 28 draws as 28
+# raw float32 columns f0..f27, NaN in every 7th row of FUSION_NAN_COLS,
+# through CleanMissingData -> FastVectorAssembler -> LightGBMClassifier
+# (default Params: depthwise 5, 100 trees; and leaf-wise 31 leaves), fitted
+# staged and fused; the fused level-wise transform's columns within
+# TOL_FUSED_DENSE (absolute) of the staged dense walk's and, against the
+# staged quantized predict (bf16 leaves), TOL_GBDT_PREDICT as the gbdt
+# phase holds it. bench.py's ResNet-20 (batch 12288) over FUSION_BATCHES
+# batches of raw uint8 CHW pixels, FUSION_EPOCHS epochs, scan and feed
+# paths, with cuDNN held to deterministic algorithms so fused and staged
+# fits can be compared bit for bit. The pipeline composite: buckets 1..16,
+# 256 requests sent 8 at a time, a closed loop of 8 clients over 64, 32
+# again to the restarted worker
+FUSION_NAN_COLS = (3, 11, 19)
+FUSION_BATCHES, FUSION_EPOCHS = 4, 2
+FUSION_SERVE_LATENCY_REQS, FUSION_SERVE_CLIENTS = 64, 8
+TOL_FUSED_DENSE = 1e-6
 
 
 def emit(obj):
@@ -4354,6 +4399,505 @@ def phase_serving(torch, env, dev="cuda"):
             "predict": booster["launches"]["predict"]}
 
 
+def fusion_frame():
+    """gbdt_data()'s rows as 28 raw float32 columns with NaN gaps, the
+    label, and the same rows as the 28-wide matrix."""
+    from mmlspark_tpu_torch import DataFrame
+    x, y = gbdt_data()
+    for j in FUSION_NAN_COLS:
+        x[::7, j] = np.nan
+    cols = {f"f{j}": np.ascontiguousarray(x[:, j])
+            for j in range(x.shape[1])}
+    return DataFrame({**cols, "label": y}), [*cols], x, y
+
+
+def fusion_pipeline(feats, booster):
+    from mmlspark_tpu_torch.core.pipeline import Pipeline
+    from mmlspark_tpu_torch.stages.basic import FastVectorAssembler
+    from mmlspark_tpu_torch.stages.data_stages import CleanMissingData
+    return Pipeline(stages=(CleanMissingData(inputCols=feats),
+                            FastVectorAssembler(inputCols=feats,
+                                                outputCol="features"),
+                            booster))
+
+
+def fusion_fits(torch, df, feats, make, want_hist: int, what: str,
+                dev: str, warm: bool = False):
+    """(a)/(b): the pipeline fitted staged, then fused (and, ``warm``, fused
+    once more: the first fused fit of the process also pays its one-time
+    costs); each fit's row 4 launches must be ``want_hist``, the booster
+    states equal key for key, bit for bit, each fused fit one dispatch a
+    binning slab and no fallback. Each fit's span times (ms by span name)
+    say where its seconds went. Returns the fused PipelineModel and the
+    phase's fields."""
+    from mmlspark_tpu_torch import telemetry
+    from mmlspark_tpu_torch.core import capture as capturelib
+    from mmlspark_tpu_torch.models.gbdt import engine
+    out = {}
+    runs = [("staged", False), ("fused", True)] + (
+        [("fused_warm", True)] if warm else [])
+    telemetry.enable()
+    try:
+        for key, fuse in runs:
+            telemetry.registry.reset()
+            telemetry.trace.clear()
+            reset_gbdt_counts()
+            reset_kernel_counts()
+            synchronize(torch, dev)
+            t0 = time.perf_counter()
+            pm = fusion_pipeline(feats, make()).setFusePipeline(fuse).fit(df)
+            state = pm.getStages()[-1].getBoosterState()   # read back
+            seconds = time.perf_counter() - t0
+            spans = collections.Counter()
+            for ev in telemetry.trace.events():
+                if ev.get("ph") == "X" and not ev["name"].startswith(
+                        "gbdt/iter"):
+                    spans[ev["name"]] += ev["dur"] / 1e3
+            out[key] = {"pm": pm, "state": state, "fit_s": seconds,
+                        "span_ms": dict(spans),
+                        "launches": {**gbdt_counts(), **kernel_counts()},
+                        "fit_dispatches": capturelib._m_fit_fused.value,
+                        "fit_fallbacks": capturelib._m_fit_fallbacks.value,
+                        "fit_h2d_bytes": capturelib._m_transfer.labels(
+                            direction="in", phase="fit").value,
+                        "fit_d2h_bytes": capturelib._m_transfer.labels(
+                            direction="out", phase="fit").value}
+    finally:
+        telemetry.disable()
+    slabs = -(-len(df) // engine._BIN_SLAB)
+    for key, fuse in runs:
+        f = out[key]
+        check_launches(f["launches"], launches_of(node_hist=want_hist),
+                       f"the {what} {key} fit", dev)
+        check(f["fit_dispatches"] == (slabs if fuse else 0)
+              and f["fit_fallbacks"] == 0,
+              f"{what} {key} fit: {f['fit_dispatches']} fused dispatches "
+              f"for {slabs} slabs, {f['fit_fallbacks']} fallbacks")
+        check(same_state(out["staged"]["state"], f["state"]),
+              f"the {what} {key} fit's booster state differs from the "
+              f"staged fit's")
+    fields = {k: {f2: v for f2, v in out[k].items()
+                  if f2 not in ("pm", "state")} for k in out}
+    fields["slabs"] = slabs
+    fields["booster_state_bit_equal"] = True
+    return out["fused"]["pm"], fields
+
+
+def fusion_transform(torch, pm, df, y, dev: str) -> dict:
+    """(c) the fused level-wise PipelineModel over the 1M rows: one
+    segment, one dispatch, row 5 not launched, a second transform a
+    replay; its columns against the staged dense walk (TOL_FUSED_DENSE)
+    and the staged quantized predict (TOL_GBDT_PREDICT, labels differing
+    only within the raw delta)."""
+    from mmlspark_tpu_torch import telemetry
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    stages = pm.getStages()
+    telemetry.enable()
+    telemetry.registry.reset()
+    try:
+        reset_gbdt_counts()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        fused = pm.transform(df)
+        first_s = time.perf_counter() - t0
+        launches = {**gbdt_counts(), **kernel_counts()}
+        segments = metric(telemetry, "mmlspark_pipeline_segments")
+        dispatches = metric(telemetry,
+                            "mmlspark_pipeline_fused_dispatches_total")
+        (entry,) = pm._seg_cache.values()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pm.transform(df)
+            times.append(time.perf_counter() - t0)
+        pf = entry["pf"]
+    finally:
+        telemetry.disable()
+    check(segments == 1 and dispatches == 1,
+          f"the fused transform ran {segments} segments, {dispatches} "
+          f"dispatches")
+    check_launches(launches, launches_of(), "the fused level-wise transform",
+                   dev)
+    check(pf.compiles == 1 and pf.calls == 4,
+          f"the segment captured {pf.compiles} times over {pf.calls} calls")
+    booster = stages[-1]
+    dense_pm = PipelineModel(stages=stages[:-1] + (
+        booster.copy().setPredictImpl("dense"),))
+    t0 = time.perf_counter()
+    dense = dense_pm.transform(df)
+    dense_s = time.perf_counter() - t0
+    worst = {}
+    for c in ("rawPrediction", "probability", "prediction"):
+        a = np.stack(fused.col(c)) if fused.col(c).dtype == object \
+            else fused.col(c)
+        b = np.stack(dense.col(c)) if dense.col(c).dtype == object \
+            else dense.col(c)
+        worst[c] = float(np.abs(a.astype(np.float64)
+                                - b.astype(np.float64)).max())
+        check(fused.col(c).dtype == dense.col(c).dtype,
+              f"fused {c} dtype {fused.col(c).dtype}")
+    check(max(worst.values()) <= TOL_FUSED_DENSE,
+          f"the fused transform differs from the staged dense walk: {worst}")
+    reset_gbdt_counts()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    auto = PipelineModel(stages=stages).transform(df)
+    auto_s = time.perf_counter() - t0
+    auto_launches = {**gbdt_counts(), **kernel_counts()}
+    check_launches(auto_launches, launches_of(predict=1),
+                   "the staged transform", dev)
+    raw_f = np.stack(fused.col("rawPrediction"))
+    raw_a = np.stack(auto.col("rawPrediction"))
+    delta = float(np.abs(raw_f - raw_a).max())
+    rel = delta / float(np.abs(raw_f).max())
+    check(rel <= TOL_GBDT_PREDICT,
+          f"fused vs staged quantized raw scores: {rel} (relative)")
+    flips = np.asarray(fused.col("prediction")) \
+        != np.asarray(auto.col("prediction"))
+    check(bool((np.abs(raw_f[flips, 0]) <= delta).all()),
+          "labels differ on rows whose margin exceeds the raw delta")
+    return {"rows": len(df), "segments": segments,
+            "fused_dispatches": dispatches, "launches": launches,
+            "captures": pf.compiles, "calls": pf.calls,
+            "first_fused_s": first_s,
+            "fused_s": statistics.median(times), "fused_s_calls": times,
+            "staged_dense_s": dense_s, "staged_auto_s": auto_s,
+            "staged_auto_launches": auto_launches,
+            "max_abs_vs_staged_dense": worst,
+            "raw_rel_delta_vs_staged_auto": rel,
+            "label_flips_vs_staged_auto": int(flips.sum())}
+
+
+def fusion_transform_split(torch, pm, df, dev: str) -> dict:
+    """(c) the leaf-wise booster, which does not capture, between two
+    segments: [CleanMissingData, FastVectorAssembler] | booster (staged,
+    row 6 once) | [RenameColumn, DropColumns]; outputs equal to the
+    staged transform's."""
+    from mmlspark_tpu_torch import telemetry
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.stages.basic import DropColumns, RenameColumn
+    stages = pm.getStages() + (
+        RenameColumn(inputCol="prediction", outputCol="yhat"),
+        DropColumns(cols=("rawPrediction",)))
+    split = PipelineModel(stages=stages, device=dev, fusePipeline=True)
+    telemetry.enable()
+    telemetry.registry.reset()
+    try:
+        reset_gbdt_counts()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        fused = split.transform(df)
+        fused_s = time.perf_counter() - t0
+        launches = {**gbdt_counts(), **kernel_counts()}
+        segments = metric(telemetry, "mmlspark_pipeline_segments")
+        dispatches = metric(telemetry,
+                            "mmlspark_pipeline_fused_dispatches_total")
+    finally:
+        telemetry.disable()
+    check(segments == 2 and dispatches == 2,
+          f"the split transform ran {segments} segments, {dispatches} "
+          f"dispatches")
+    check_launches(launches, launches_of(predict_lw=1),
+                   "the split leaf-wise transform", dev)
+    t0 = time.perf_counter()
+    staged = PipelineModel(stages=stages).transform(df)
+    staged_s = time.perf_counter() - t0
+    # the booster's outputs and the features bit for bit; the imputed
+    # columns hold the fill in float32 (the device dtype) where the staged
+    # stage keeps float64: equal within float32 rounding
+    check(fused.columns == staged.columns, "the split transform's columns")
+    worst_fill = 0.0
+    for c in fused.columns:
+        a, b = fused.col(c), staged.col(c)
+        check(a.dtype == b.dtype, f"{c}: dtype {a.dtype}, staged {b.dtype}")
+        if a.dtype == object:
+            a, b = np.stack(a), np.stack(b)
+        if c in ("features", "probability", "yhat", "label"):
+            check(np.array_equal(a, b), f"{c} differs from the staged {c}")
+        else:
+            worst_fill = max(worst_fill, float(np.nanmax(
+                np.abs(a - b) / np.maximum(np.abs(b), 1e-30))))
+    check(worst_fill <= 2.0 ** -24,
+          f"imputed columns {worst_fill} (relative) from the staged ones")
+    return {"segments": segments, "fused_dispatches": dispatches,
+            "launches": launches, "outputs_equal": True,
+            "imputed_rel_delta": worst_fill,
+            "fused_s": fused_s, "staged_s": staged_s}
+
+
+def fusion_image_data():
+    """bench.py's ResNet-20 inputs (bench.py:82-99): FUSION_BATCHES x
+    12288 rows of uint8 pixels, flat in CHW order, and 10-class labels."""
+    rng = np.random.default_rng(SEED + 30)
+    n = FUSION_BATCHES * BENCH_BATCH
+    pixels = rng.integers(0, 256, size=(n, 3 * 32 * 32), dtype=np.uint8)
+    labels = rng.integers(0, 10, size=n).astype(np.int64)
+    return pixels, labels
+
+
+def fusion_learner(dev: str, **kw):
+    from mmlspark_tpu_torch import TorchLearner
+    return TorchLearner(modelConfig={"type": "resnet", "num_classes": 10},
+                        inputShape=(3, 32, 32), batchSize=BENCH_BATCH,
+                        optimizer="momentum", learningRate=BENCH_LR,
+                        momentum=0.9, precision="bf16",
+                        epochs=FUSION_EPOCHS, seed=SEED, device=dev, **kw)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def fusion_trainer(torch, dev: str) -> dict:
+    """(d) FastVectorAssembler(("pixels",)) -> TorchLearner(ResNet-20,
+    inputShape (3, 32, 32)) at bench.py's batch, staged and fused, on the
+    scan and the feed path: equal parameters, the fused feature upload
+    exactly a quarter of the staged one (uint8 against float32) on the
+    trainer's counter and on the fit-phase pipeline counter, one capture
+    per fused program; (e) fitStreamCaptured over the raw batches against
+    fitStream over the staged ones."""
+    from mmlspark_tpu_torch import DataFrame, telemetry
+    from mmlspark_tpu_torch.core import capture as capturelib
+    from mmlspark_tpu_torch.core.pipeline import Pipeline
+    from mmlspark_tpu_torch.models import trainer as trainerlib
+    from mmlspark_tpu_torch.stages.basic import FastVectorAssembler
+    pixels, labels = fusion_image_data()
+    n = len(labels)
+    df = DataFrame({"pixels": pixels, "label": labels})
+    asm = FastVectorAssembler(inputCols=("pixels",), outputCol="features")
+    out = {"rows": n, "batch": BENCH_BATCH, "epochs": FUSION_EPOCHS,
+           "config": {"type": "resnet", "num_classes": 10}}
+    row_bytes = pixels.shape[1]
+    telemetry.enable()
+    try:
+        with deterministic_cudnn(torch):
+            for path, kw in (("scan", {}), ("feed", {"deviceDataCap": 1})):
+                fits = {}
+                for fuse in (False, True):
+                    telemetry.registry.reset()
+                    lr = fusion_learner(dev, **kw)
+                    t0 = time.perf_counter()
+                    pm = Pipeline(stages=(asm, lr),
+                                  fusePipeline=fuse).fit(df)
+                    fit_s = time.perf_counter() - t0
+                    model = pm.getStages()[-1]
+                    stats = model._fit_stats
+                    steps = stats["steps_per_epoch"]
+                    fits[fuse] = {
+                        "model": model, "fit_s": fit_s,
+                        "path": stats["path"],
+                        "step_ms": stats["epoch_seconds"][-1] / steps * 1e3,
+                        "trainer_bytes": trainerlib._m_transfer_bytes.value,
+                        "fit_h2d_bytes": capturelib._m_transfer.labels(
+                            direction="in", phase="fit").value,
+                        "fit_dispatches": capturelib._m_fit_fused.value,
+                        "captures": [pf.compiles for pf in getattr(
+                            lr, "_fused_programs", {}).values()]}
+                staged, fused = fits[False], fits[True]
+                check(staged["path"] == fused["path"] == path,
+                      f"{path}: the fits took the {staged['path']} and "
+                      f"{fused['path']} paths")
+                equal = same_params(staged["model"], fused["model"])
+                check(equal, f"{path}: the fused ResNet-20 fit's parameters "
+                      f"differ from the staged fit's (relative L2 "
+                      f"{params_rel_l2(fused['model'], staged['model'])})")
+                # the label column (int32) ships alike: the feature bytes
+                # are what is left
+                rows_up = fused["trainer_bytes"] / (row_bytes + 4)
+                feat_staged = staged["trainer_bytes"] - 4 * rows_up
+                feat_fused = fused["trainer_bytes"] - 4 * rows_up
+                check(feat_staged == 4 * feat_fused
+                      and fused["fit_h2d_bytes"] == fused["trainer_bytes"],
+                      f"{path}: feature upload {feat_fused} fused against "
+                      f"{feat_staged} staged (trainer counter), "
+                      f"{fused['fit_h2d_bytes']} on the fit-phase counter")
+                check(fused["captures"] == [1],
+                      f"{path}: fused program captures {fused['captures']}")
+                check(fused["fit_dispatches"] == steps * FUSION_EPOCHS,
+                      f"{path}: {fused['fit_dispatches']} fused dispatches")
+                out[path] = {
+                    "params_bit_equal": equal,
+                    "staged": {k: v for k, v in staged.items()
+                               if k != "model"},
+                    "fused": {k: v for k, v in fused.items()
+                              if k != "model"},
+                    "feature_bytes_staged": feat_staged,
+                    "feature_bytes_fused": feat_fused}
+            out["stream"] = fusion_stream(torch, pixels, labels, asm, dev)
+    finally:
+        telemetry.disable()
+    return out
+
+
+def fusion_stream(torch, pixels, labels, asm, dev: str) -> dict:
+    """(e) fitStreamCaptured over raw (pixels, label) batches against
+    fitStream over the staged float32 NHWC batches: equal parameters."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.core.capture import compose_fit_capture
+    bs = BENCH_BATCH
+    spans = [(lo, lo + bs) for lo in range(0, len(labels), bs)]
+
+    def staged():
+        for lo, hi in spans:
+            x = pixels[lo:hi].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+            yield np.ascontiguousarray(x, dtype=np.float32), labels[lo:hi]
+
+    def raw():
+        for lo, hi in spans:
+            yield pixels[lo:hi], labels[lo:hi]
+
+    plan = compose_fit_capture(
+        [asm], DataFrame({"pixels": pixels[:2], "label": labels[:2]}),
+        "features", "label")
+    check(plan is not None, "no capture plan for the stream")
+    t0 = time.perf_counter()
+    want = fusion_learner(dev).fitStream(staged)
+    staged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = fusion_learner(dev).fitStreamCaptured(raw, plan)
+    fused_s = time.perf_counter() - t0
+    equal = same_params(want, got)
+    check(equal, f"fitStreamCaptured's parameters differ from fitStream's "
+          f"(relative L2 {params_rel_l2(got, want)})")
+    return {"batches": len(spans), "params_bit_equal": equal,
+            "fit_stream_s": staged_s, "fit_stream_captured_s": fused_s}
+
+
+def fusion_serving(torch, booster, x, dev: str) -> dict:
+    """(f) the pipeline composite: (a)'s booster behind a
+    FastVectorAssembler over one 28-wide wire column ("features";
+    from_pipeline serves one wire column, and (a)'s pipeline reads 28) as
+    FusedServingStep.from_pipeline, buckets 1..16, behind
+    serve_continuous: every bucket's replay equal to eager bit for bit,
+    the replies equal to the PipelineModel's transform, no kernel of the
+    table launched, a restarted worker warm from the bundle with 0
+    captures and 0 nvcc runs."""
+    import tempfile
+    from mmlspark_tpu_torch import DataFrame, telemetry
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.core.utils import object_column
+    from mmlspark_tpu_torch.io.serving import (BucketPolicy,
+                                               FusedServingStep,
+                                               save_bundle, serve_continuous)
+    from mmlspark_tpu_torch.stages.basic import FastVectorAssembler
+    served = PipelineModel(stages=(
+        FastVectorAssembler(inputCols=("features",), outputCol="assembled"),
+        booster.copy().setFeaturesCol("assembled")), device=dev)
+    step = FusedServingStep.from_pipeline(
+        served, input_col="features", row_shape=(x.shape[1],),
+        in_dtype=np.float32, device=dev,
+        policy=BucketPolicy(max_batch=SERVE_MAX_BATCH, min_bucket=1))
+    rows = x[:SERVE_REQUESTS]
+    payloads = b64_rows(rows)
+    frame = DataFrame({"features": object_column(list(rows))})
+    want_labels = served.copy().setFusePipeline(True).transform(frame) \
+        .col("prediction").astype(int).tolist()
+    dense = PipelineModel(stages=(served.getStages()[0], served.getStages()[1]
+                                  .copy().setPredictImpl("dense")))
+    check(dense.transform(frame).col("prediction").astype(int).tolist()
+          == want_labels, "the fused and the staged dense transforms of the "
+          "composite's pipeline disagree")
+    telemetry.enable()
+    telemetry.registry.reset()
+    try:
+        t0 = time.perf_counter()
+        source, loop = serve_continuous(step)    # captures, then opens
+        capture_s = time.perf_counter() - t0
+        check(step.warm_buckets() == step.policy.buckets == [1, 2, 4, 8, 16]
+              and step.compiles() == 5,
+              f"warm buckets {step.warm_buckets()} after serve_continuous")
+        try:
+            reset_gbdt_counts()
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            bodies = post_replies(source.url, payloads, SERVE_CONCURRENCY)
+            traffic_s = time.perf_counter() - t0
+            launches = {**gbdt_counts(), **kernel_counts()}
+            lat = closed_loop(source.url,
+                              payloads[:FUSION_SERVE_LATENCY_REQS],
+                              FUSION_SERVE_CLIENTS)
+            misses = metric(telemetry,
+                            "mmlspark_serving_exec_cache_misses_total")
+        finally:
+            loop.stop()
+            source.close()
+    finally:
+        telemetry.disable()
+    got = [json.loads(b)["label"] for b in bodies]
+    check(got == want_labels, "the composite's replies differ from the "
+          "pipeline's transform")
+    check(misses == 0, f"{misses} cache misses under traffic")
+    check_launches(launches, launches_of(), "the pipeline composite", dev)
+    buckets = {}
+    rng = np.random.default_rng(SEED + 31)
+    for b in step.policy.buckets:
+        xb = torch.from_numpy(x[rng.choice(len(x), b)]).to(dev)
+        ex = step.executable(b)
+        same = bool(torch.equal(ex(xb), step.forward(xb)))
+        check(same, f"bucket {b}: the replay differs from eager")
+        buckets[str(b)] = {"bit_equal": same}
+        if dev == "cuda":
+            buckets[str(b)].update(
+                replay_ms=cuda_ms(torch, lambda: ex(xb)),
+                eager_ms=cuda_ms(torch, lambda: step.forward(xb)))
+    lat.pop("bodies")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(tmp, step)
+        restart = serve_worker(torch, tmp, payloads[:SERVE_RESTART_REQS],
+                               bodies[:SERVE_RESTART_REQS], dev)
+    return {"requests": len(rows), "concurrency": SERVE_CONCURRENCY,
+            "capture_s": capture_s, "traffic_s": traffic_s,
+            "requests_per_s": len(rows) / traffic_s,
+            "replies_equal_transform": True, "launches": launches,
+            "cache_misses": misses, "closed_loop": lat,
+            "buckets": buckets, "warm_restart": restart}
+
+
+def phase_fusion(torch, env, dev="cuda"):
+    """Whole-pipeline capture (core/capture.py) on the slices' shapes: (a)
+    and (b) the fused featurize -> bin GBDT fits, (c) the fused transforms,
+    (d) and (e) the fused ResNet-20 fits, (f) the pipeline serving
+    composite."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    t_phase = time.perf_counter()
+    df, feats, x, y = fusion_frame()
+    pm_lvl, fit_lvl = fusion_fits(
+        torch, df, feats, lambda: LightGBMClassifier(device=dev),
+        GBDT_TREES * GBDT_DEPTH, "level-wise", dev, warm=True)
+    pm_lw, fit_lw = fusion_fits(
+        torch, df, feats,
+        lambda: LightGBMClassifier(device=dev).setGrowthPolicy("leafwise"),
+        GBDT_LEAVES * GBDT_TREES, "leaf-wise", dev)
+    transform = fusion_transform(torch, pm_lvl, df, y, dev)
+    split = fusion_transform_split(torch, pm_lw, df, dev)
+    trainer = fusion_trainer(torch, dev)
+    serving = fusion_serving(torch, pm_lvl.getStages()[-1], x, dev)
+    emit({"phase": "fusion", "rows": len(df), "nan_columns": FUSION_NAN_COLS,
+          "fit_levelwise": fit_lvl, "fit_leafwise": fit_lw,
+          "transform": transform, "transform_split": split,
+          "trainer": trainer, "serving": serving,
+          "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+    return {"fit": fit_lvl["staged"]["launches"]["node_hist"],
+            "fit_fused": fit_lvl["fused"]["launches"]["node_hist"],
+            "fit_leafwise": fit_lw["staged"]["launches"]["node_hist"],
+            "fit_fused_leafwise": fit_lw["fused"]["launches"]["node_hist"],
+            "transform_fused": transform["launches"]["predict"],
+            "transform_staged": transform["staged_auto_launches"]["predict"],
+            "transform_fused_split": split["launches"]["predict_lw"],
+            "serve_hist": serving["launches"]["node_hist"],
+            "serve_predict": serving["launches"]["predict"]}
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -4369,7 +4913,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
           "vision_train", "automl_tabular", "automl_text", "platform",
-          "ingest", "serving")
+          "ingest", "serving", "fusion")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -4388,6 +4932,7 @@ PHASE_FNS = {
     "platform": phase_platform,
     "ingest": phase_ingest,
     "serving": phase_serving,
+    "fusion": phase_fusion,
 }
 
 
@@ -4452,16 +4997,28 @@ def main(argv=None) -> int:
     phase_platform(torch, env)
     phase_ingest(torch, env)
     serving = phase_serving(torch, env)
+    fusion = phase_fusion(torch, env)
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],
                     "automl_fit": automl["node_hist_fit"],
-                    "automl_tune": automl["node_hist_tune"]}
+                    "automl_tune": automl["node_hist_tune"],
+                    "fit_staged_pipeline": fusion["fit"],
+                    "fit_fused": fusion["fit_fused"],
+                    "fit_staged_pipeline_leafwise": fusion["fit_leafwise"],
+                    "fit_fused_leafwise": fusion["fit_fused_leafwise"],
+                    "serve_pipeline_composite": fusion["serve_hist"]}
     predict_by_path = {"transform": gbdt["predict"],
                        "automl_transform": automl["predict"],
-                       "serve_pipeline": serving["predict"]}
+                       "serve_pipeline": serving["predict"],
+                       "transform_fused": fusion["transform_fused"],
+                       "transform_staged_pipeline":
+                           fusion["transform_staged"],
+                       "serve_pipeline_composite": fusion["serve_predict"]}
     predict_lw_by_path = {"transform_leafwise": leafwise["predict_lw"],
-                          "automl_tune": automl["predict_lw"]}
+                          "automl_tune": automl["predict_lw"],
+                          "transform_fused_split":
+                              fusion["transform_fused_split"]}
     csrc = "mmlspark_tpu_torch/ops/csrc/"
     replaces = "mmlspark_tpu/ops/pallas_kernels.py:"
     emit({"kernels": [

@@ -20,7 +20,10 @@ Commit protocol — the sharded-checkpoint manifest format of
 
 * every component (``bundle_meta.json``, ``bundle_model.msgpack`` — the
   flax param tree, written by the port's own codec
-  ``models.downloader.write_flax_msgpack`` — and one
+  ``models.downloader.write_flax_msgpack`` — or, for a pipeline composite
+  (``kind == "pipeline"``, ``FusedServingStep.from_pipeline``),
+  ``bundle_pipeline.bin`` — the pickled ``PipelineModel``, stages and
+  fitted params, without its device caches — and one
   ``bundle_exec_b<rows>.bin`` per bucket) is committed as a SHARD:
   tmp-write + fsync + atomic rename (fault site ``ckpt.shard``);
 * the head (``serving_bundle.json``) + ``manifest.json`` commit LAST,
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Optional
 
 from ... import telemetry
@@ -56,6 +60,8 @@ log = get_logger("io.serving")
 #: the bundle head's canonical name (the manifest's multi-shard record)
 BUNDLE_HEAD = "serving_bundle.json"
 SCHEMA = "mmlspark-serving-bundle/v1"
+#: the pipeline composite's model-component shard (kind == "pipeline")
+_PIPELINE_SHARD = "bundle_pipeline.bin"
 
 _m_bundle_loads = telemetry.registry.counter(
     "mmlspark_serving_bundle_loads_total",
@@ -120,10 +126,11 @@ def save_bundle(directory: str, step: FusedServingStep,
     from ...models.weights import is_flax_tree, to_flax_params
     os.makedirs(directory, exist_ok=True)
     step.compile_buckets()
+    kind = getattr(step, "bundle_kind", "model")
     meta = {
         "schema": SCHEMA,
         "version": 1,
-        "kind": "model",
+        "kind": kind,
         **runtime(step.device),
         "model_config": step.model_config,
         "row_shape": list(step.row_shape),
@@ -133,13 +140,22 @@ def save_bundle(directory: str, step: FusedServingStep,
         "max_batch": step.policy.max_batch,
         "buckets": list(step.policy.buckets),
     }
+    if kind == "pipeline":
+        # a pipeline composite's "model" component is the PipelineModel
+        # itself (stages + fitted params); the fused body and its placed
+        # params are rebuilt from it at load time
+        meta["input_col"] = step.input_col
+        meta["score_col"] = step.score_col
+        model_shard = (_PIPELINE_SHARD, pickle.dumps(step.pipeline))
+    else:
+        tree = step.params if is_flax_tree(step.params) \
+            else to_flax_params(step.params, step.model_config)
+        model_shard = ("bundle_model.msgpack", write_flax_msgpack(tree))
     if extra_meta:
         meta.update(extra_meta)
-    tree = step.params if is_flax_tree(step.params) \
-        else to_flax_params(step.params, step.model_config)
     shards = [("bundle_meta.json",
                json.dumps(meta, sort_keys=True).encode("utf-8")),
-              ("bundle_model.msgpack", write_flax_msgpack(tree))]
+              model_shard]
     for b in step.policy.buckets:
         shards.append((_exec_shard(b), json.dumps(
             _record_of(step, b), sort_keys=True).encode("utf-8")))
@@ -228,11 +244,10 @@ def load_bundle(directory: str, policy: Optional[BucketPolicy] = None,
         raise ckpt.CorruptCheckpoint(
             f"serving bundle in {directory} has a torn meta shard")
     meta = json.loads(meta_blob.decode("utf-8"))
-    if meta.get("kind", "model") == "pipeline":
-        raise NotImplementedError(
-            "pipeline bundles wait for the port of core/capture.py "
-            "(ROADMAP.md Queue 1 item 11)")
-    model_blob = _read_shard(directory, "bundle_model.msgpack")
+    kind = meta.get("kind", "model")
+    model_blob = _read_shard(
+        directory,
+        _PIPELINE_SHARD if kind == "pipeline" else "bundle_model.msgpack")
     if model_blob is None:
         _m_bundle_loads.labels(result="cold").inc()
         ckpt.note_corrupt(BUNDLE_HEAD, "model/meta shard torn")
@@ -242,11 +257,19 @@ def load_bundle(directory: str, policy: Optional[BucketPolicy] = None,
         policy = BucketPolicy(max_batch=meta["max_batch"],
                               min_bucket=meta["min_bucket"])
     import numpy as np
-    step = FusedServingStep(meta["model_config"],
-                            read_flax_msgpack(model_blob), policy=policy,
-                            row_shape=tuple(meta["row_shape"]),
-                            in_dtype=np.dtype(meta["in_dtype"]),
-                            output=meta["output"], **step_kwargs)
+    if kind == "pipeline":
+        step = FusedServingStep.from_pipeline(
+            pickle.loads(model_blob), input_col=meta["input_col"],
+            score_col=meta["score_col"], policy=policy,
+            row_shape=tuple(meta["row_shape"]),
+            in_dtype=np.dtype(meta["in_dtype"]),
+            output=meta["output"], **step_kwargs)
+    else:
+        step = FusedServingStep(meta["model_config"],
+                                read_flax_msgpack(model_blob), policy=policy,
+                                row_shape=tuple(meta["row_shape"]),
+                                in_dtype=np.dtype(meta["in_dtype"]),
+                                output=meta["output"], **step_kwargs)
     here = runtime(step.device)
     stale = {k: (meta.get(k), v) for k, v in here.items()
              if meta.get(k) != v}

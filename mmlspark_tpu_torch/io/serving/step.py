@@ -23,6 +23,10 @@ which touches the device:
 
 On the CPU there is no graph: a bucket is "captured" once it has run
 once, and the dispatch is the plain forward.
+
+:meth:`FusedServingStep.from_pipeline` makes the same step over a whole
+``PipelineModel`` (core/capture.py): every stage's capture composed into
+one body, featurize -> predict in one graph per bucket.
 """
 
 from __future__ import annotations
@@ -90,7 +94,8 @@ class FusedServingStep:
     returns the score rows. ``decode``/``encode`` override the payload
     codecs. ``device`` is where the model serves ("cuda" by default;
     asking for CUDA where there is none raises). A float32 model serves
-    with TF32 off, set at capture time.
+    with TF32 off, set at capture time. ``_body`` (``from_pipeline``)
+    replaces the model: a function of the wire batch on the device.
     """
 
     def __init__(self, model_config: Optional[dict], params, *,
@@ -98,7 +103,8 @@ class FusedServingStep:
                  row_shape=(), in_dtype=np.uint8, output: str = "argmax",
                  decode: Optional[Callable] = None,
                  encode: Optional[Callable] = None,
-                 tag: str = "serving.step", device: str = "cuda"):
+                 tag: str = "serving.step", device: str = "cuda",
+                 _body: Optional[Callable] = None):
         import torch
         from ...models.modules import build_model, resolve_dtype, sized_for
         from ...models.torch_model import full_precision_matmuls
@@ -118,16 +124,27 @@ class FusedServingStep:
         self.params = params
         self._wire_dtype = torch.from_numpy(
             np.zeros(0, self.in_dtype)).dtype
-        cfg = sized_for(self.model_config, (1,) + self.row_shape)
-        with torch.device(self.device):
-            module = build_model(cfg)
-        module.load_state_dict(as_state_dict(params, cfg), strict=True)
-        self.module = module.eval().requires_grad_(False)
-        f32 = resolve_dtype(cfg.get("dtype")) == torch.float32
+        if _body is None:
+            cfg = sized_for(self.model_config, (1,) + self.row_shape)
+            with torch.device(self.device):
+                module = build_model(cfg)
+            module.load_state_dict(as_state_dict(params, cfg), strict=True)
+            self.module = module.eval().requires_grad_(False)
+            f32 = resolve_dtype(cfg.get("dtype")) == torch.float32
+            grad_off = torch.inference_mode
+
+            def _body(x):
+                return self.module(x.long() if x.dtype == torch.int32
+                                   else x)
+        else:
+            # a pipeline body builds device state (a net's module) on its
+            # first, uncaptured run, which must outlive inference mode
+            self.module = None
+            f32, grad_off = True, torch.no_grad
 
         def fused(x):
-            with torch.inference_mode(), full_precision_matmuls(f32):
-                y = self.module(x.long() if x.dtype == torch.int32 else x)
+            with grad_off(), full_precision_matmuls(f32):
+                y = _body(x)
                 if output == "argmax" and y.ndim > 1:
                     return y.argmax(dim=-1).to(torch.int32)
                 return y
@@ -144,12 +161,48 @@ class FusedServingStep:
                         if self.device.type == "cuda" else None)
 
     @classmethod
-    def from_pipeline(cls, pipeline, **kwargs) -> "FusedServingStep":
-        """A whole pipeline as the fused body needs the port of
-        ``core/capture.py``."""
-        raise NotImplementedError(
-            "serving a whole pipeline as one step waits for the port of "
-            "core/capture.py (ROADMAP.md Queue 1 item 11)")
+    def from_pipeline(cls, pipeline, *, input_col: str = "features",
+                      score_col: Optional[str] = None, row_shape=(),
+                      in_dtype=np.float32,
+                      policy: Optional[BucketPolicy] = None,
+                      output: str = "argmax",
+                      decode: Optional[Callable] = None,
+                      encode: Optional[Callable] = None,
+                      tag: str = "serving.pipeline",
+                      device: str = "cuda") -> "FusedServingStep":
+        """A whole PIPELINE as the fused step body: every stage of
+        ``pipeline`` (a ``PipelineModel``) must expose a capture
+        (core/capture.py — uncapturable stages raise), and the composed
+        featurize -> predict function is captured as ONE CUDA graph per
+        bucket, bundle-restorable like any model step — a serving worker
+        loads the pipeline composite warm. ``input_col`` is the wire
+        column the decoded payload feeds; ``score_col`` the pipeline
+        output column served (default: ``scores``/``probability``/
+        ``prediction``, first match, else the last produced column)."""
+        from ...core import capture as capturelib
+        stages = tuple(pipeline.getOrDefault("stages"))
+        seg = capturelib.whole_pipeline_capture(stages, [input_col])
+        if list(seg.in_names) != [input_col]:
+            raise ValueError(
+                f"pipeline serving composites take ONE wire column "
+                f"({input_col!r}); this pipeline also reads "
+                f"{[n for n in seg.in_names if n != input_col]}")
+        if score_col is None:
+            score_col = next((c for c in ("scores", "probability",
+                                          "prediction")
+                              if c in seg.out_names), seg.out_names[-1])
+        body, params = capturelib.segment_body(seg, score_col)
+        dev = resolve_device(device, "FusedServingStep")
+        params_dev = capturelib.place_segment_params(seg, dev)
+        step = cls(None, params, policy=policy, row_shape=row_shape,
+                   in_dtype=in_dtype, output=output, decode=decode,
+                   encode=encode, tag=tag, device=device,
+                   _body=lambda x: body(params_dev, (x,)))
+        step.pipeline = pipeline
+        step.bundle_kind = "pipeline"
+        step.input_col = input_col
+        step.score_col = score_col
+        return step
 
     # ---- warmup / bundle surface ----
     def bucket_spec(self, bucket: int):

@@ -18,11 +18,10 @@ card, "cpu" on request):
 
 The fitted models score on the host in numpy (``_probs``), as the JAX
 package's do, so both packages give the same probabilities from the same
-weights. All share the fit(df) -> Model(transform) contract and emit
-probability/prediction columns like the GBDT stages.
-
-Not ported yet: ``capture`` (whole-pipeline fusion, ROADMAP.md Queue 1
-item 11).
+weights. Inside a fused pipeline segment (core/capture.py) they score on
+the segment's device instead: ``capture`` runs ``_traced_probs``, the same
+math in float32 tensor code. All share the fit(df) -> Model(transform)
+contract and emit probability/prediction columns like the GBDT stages.
 """
 
 from __future__ import annotations
@@ -51,6 +50,53 @@ class _ProbClassifierModel(Model, HasFeaturesCol):
 
     def _probs(self, x: np.ndarray) -> np.ndarray:
         raise NotImplementedError
+
+    def _capture_params(self):
+        """Param tree for the capture (the STORED arrays, so identity
+        changes — new weights — invalidate the cached fused program), or
+        None when the model has no device form."""
+        return None
+
+    def _capture_place(self, params, device):
+        """``params`` on the segment's device (core/capture.place_tree)."""
+        from ..core.capture import place_tree
+        return place_tree(params, device)
+
+    def _traced_probs(self, p, x):
+        """Tensor twin of ``_probs``: ``p`` = ``_capture_params()`` on the
+        device, ``x`` an (n, d) float32 tensor."""
+        raise NotImplementedError
+
+    def capture(self, columns):
+        """Probability + argmax as one body (cross-stage fusion,
+        core/capture.py). Host ``_probs`` computes in float64; the fused
+        path runs the device dtype (float32) — same values at float32
+        precision."""
+        from ..core.capture import StageCapture
+        params = self._capture_params()
+        if params is None or self.getFeaturesCol() not in columns:
+            return None
+        prob_col, pred_col = self.getProbabilityCol(), self.getPredictionCol()
+
+        def fn(p, xs):
+            import torch
+            x = xs[0].to(torch.float32)
+            prob = self._traced_probs(p, x.reshape(x.shape[0], -1))
+            pred = torch.argmax(prob, dim=-1).to(torch.float32)
+            return prob, pred
+
+        def finalize(df):
+            out = SparkSchema.setScoresColumnName(df, prob_col,
+                                                  "classification")
+            return SparkSchema.setScoredLabelsColumnName(
+                out, pred_col, "classification")
+
+        return StageCapture(fn, inputs=(self.getFeaturesCol(),),
+                            outputs=(prob_col, pred_col),
+                            params=params,
+                            host_cast={pred_col: np.float64},
+                            finalize=finalize, tag="classical.predict",
+                            place=self._capture_place)
 
     def _features(self, df: DataFrame):
         """Feature matrix hook — models that can score a sparse matrix
@@ -121,6 +167,16 @@ class LogisticRegressionModel(_ProbClassifierModel):
         e = np.exp(z - z.max(axis=1, keepdims=True))
         return e / e.sum(axis=1, keepdims=True)
 
+    def _capture_params(self):
+        if self.getCoefficients() is None:
+            return None
+        return {"W": self.getCoefficients(), "b": self.getIntercept()}
+
+    def _traced_probs(self, p, x):
+        import torch
+        z = x @ p["W"].to(torch.float32) + p["b"].to(torch.float32)
+        return torch.softmax(z, dim=-1)
+
 
 class LogisticRegression(Estimator, HasFeaturesCol, HasLabelCol):
     regParam = FloatParam("L2 regularization", default=0.0, min=0.0)
@@ -153,6 +209,31 @@ class LinearRegressionModel(Model, HasFeaturesCol):
         out = df.withColumn(self.getPredictionCol(), pred)
         return SparkSchema.setScoresColumnName(out, self.getPredictionCol(),
                                                "regression")
+
+    def capture(self, columns):
+        from ..core.capture import StageCapture
+        if self.getCoefficients() is None \
+                or self.getFeaturesCol() not in columns:
+            return None
+        pred_col = self.getPredictionCol()
+
+        def fn(p, xs):
+            import torch
+            x = xs[0].to(torch.float32)
+            x = x.reshape(x.shape[0], -1)
+            z = x @ p["W"].to(torch.float32) + p["b"].to(torch.float32)
+            return (z[:, 0],)
+
+        def finalize(df):
+            return SparkSchema.setScoresColumnName(df, pred_col,
+                                                   "regression")
+
+        return StageCapture(fn, inputs=(self.getFeaturesCol(),),
+                            outputs=(pred_col,),
+                            params={"W": self.getCoefficients(),
+                                    "b": self.getIntercept()},
+                            host_cast={pred_col: np.float64},
+                            finalize=finalize, tag="classical.predict")
 
 
 class LinearRegression(Estimator, HasFeaturesCol, HasLabelCol):
@@ -216,6 +297,31 @@ class NaiveBayesModel(_ProbClassifierModel):
             z = ll + lp[None]
         e = np.exp(z - z.max(axis=1, keepdims=True))
         return e / e.sum(axis=1, keepdims=True)
+
+    def _capture_params(self):
+        lp = self.getClassLogPriors()
+        if lp is None:
+            return None
+        if self._is_multinomial():
+            return {"lp": lp, "theta": self.getFeatureLogProbs()}
+        if self.getMeans() is None:
+            return None
+        return {"lp": lp, "mu": self.getMeans(),
+                "var": self.getVariances()}
+
+    def _traced_probs(self, p, x):
+        import torch
+        lp = p["lp"].to(torch.float32)
+        if "theta" in p:
+            z = x @ p["theta"].to(torch.float32).T + lp[None]
+        else:
+            mu = p["mu"].to(torch.float32)
+            var = p["var"].to(torch.float32)
+            ll = -0.5 * (torch.log(2 * np.pi * var)[None]
+                         + (x[:, None, :] - mu[None]) ** 2
+                         / var[None]).sum(dim=2)
+            z = ll + lp[None]
+        return torch.softmax(z, dim=-1)
 
 
 def _nb_inputs(x: np.ndarray, y: np.ndarray, k: int, device: str):
@@ -398,6 +504,36 @@ class MLPClassificationModel(_ProbClassifierModel):
     inner = ComplexParam("fitted TorchModel", default=None)
     featureMean = ComplexParam("standardization mean", default=None)
     featureScale = ComplexParam("standardization scale", default=None)
+
+    def _capture_params(self):
+        tm = self.getInner()
+        if tm is None or tm.getModelParams() is None \
+                or tm.getModelConfig() is None \
+                or tm.getTensorParallel() > 1:
+            return None
+        p = {"inner": tm.getModelParams()}
+        if self.getFeatureMean() is not None:
+            p["mu"] = self.getFeatureMean()
+            p["sd"] = self.getFeatureScale()
+        return p
+
+    def _capture_place(self, params, device):
+        # the inner net's weights live in its own device module
+        # (TorchModel._device_module): only the standardization uploads
+        from ..core.capture import place_tree
+        rest = {k: v for k, v in params.items() if k != "inner"}
+        return place_tree(rest, device)
+
+    def _traced_probs(self, p, x):
+        import torch
+
+        from .modules import sized_for
+        tm = self.getInner()
+        if "mu" in p:
+            x = (x - p["mu"].to(torch.float32)) / p["sd"].to(torch.float32)
+        module = tm._device_module(x.device,
+                                   sized_for(tm.getModelConfig(), x.shape))
+        return torch.softmax(module(x).float(), dim=-1)
 
     def _probs(self, x):
         import scipy.special

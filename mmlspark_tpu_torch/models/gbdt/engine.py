@@ -35,9 +35,13 @@ bin-time metrics; the predict gauges; ``profiler.wrap(...,
 "gbdt.predict_quant")`` around the quantized predicts; and a device memory
 sample per iteration and per predict while the profiler is on.
 
+``traced_raw_levelwise`` is the dense level-wise scoring body as a
+sync-free function of device tensors, binning included: a fused pipeline
+segment (core/capture.py) runs it inside its one program.
+
 Not ported yet, each raising NotImplementedError: a mesh or a
-multi-process fit, level-wise or leaf-wise (ROADMAP item 12),
-``fit_gbdt_elastic`` (item 13b), and ``traced_raw_levelwise`` (item 11).
+multi-process fit, level-wise or leaf-wise (ROADMAP item 12), and
+``fit_gbdt_elastic`` (item 13b).
 """
 
 from __future__ import annotations
@@ -190,22 +194,41 @@ def bin_data_device(x: np.ndarray, edges: np.ndarray,
     the f32 rows go up, nothing comes back."""
     dev = torch.device(device)
     n, d = x.shape
-    edges_t = torch.from_numpy(np.ascontiguousarray(edges, np.float32)).to(dev)
-    # a NaN edge (nanquantile over infinities) sorts last in numpy; +inf
-    # takes its place exactly in a side='left' search
-    edges_t = torch.where(torch.isnan(edges_t), torch.inf, edges_t)
-    cat = torch.from_numpy(np.asarray(
-        cat_features if cat_features is not None else np.zeros(d, bool),
-        dtype=bool)).to(dev)
+    edges_t, cat = _slab_tables(edges, cat_features, dev)
     out = torch.empty((n, d), dtype=torch.uint8, device=dev)
     for start in range(0, n, slab):
         xs = torch.from_numpy(np.ascontiguousarray(
             x[start:start + slab], dtype=np.float32)).to(dev)
-        ids = torch.searchsorted(edges_t, xs.T.contiguous(), side="left").T
-        catv = torch.nan_to_num(xs).clamp(0, max_bin - 1).to(torch.uint8)
-        b = torch.where(cat[None, :], catv, ids.to(torch.uint8))
-        out[start:start + len(xs)] = torch.where(torch.isnan(xs), 0, b)
+        out[start:start + len(xs)] = _bin_slab_device(xs, edges_t, cat,
+                                                      max_bin)
     return out
+
+
+def _slab_tables(edges: np.ndarray, cat_features, device):
+    """The binner's device tables: the (d, B-1) float32 edges, a NaN edge
+    (nanquantile over infinities) replaced by +inf — numpy sorts NaN last,
+    and +inf takes its place exactly in a side='left' search — and the (d,)
+    categorical mask."""
+    edges_t = torch.from_numpy(np.ascontiguousarray(edges, np.float32)) \
+        .to(device)
+    edges_t = torch.where(torch.isnan(edges_t), torch.inf, edges_t)
+    d = edges_t.shape[0]
+    cat = torch.from_numpy(np.asarray(
+        cat_features if cat_features is not None else np.zeros(d, bool),
+        dtype=bool)).to(device)
+    return edges_t, cat
+
+
+def _bin_slab_device(xs, edges_t, cat, max_bin: int):
+    """(m, d) float32 rows -> (m, d) uint8 bins, a sync-free function of
+    device tensors (``bin_data``'s contract: side='left' per feature,
+    NaN -> 0, categorical identity clipped to the bin range). Shared by
+    ``bin_data_device`` and the fused featurize -> bin slabs of a
+    pipeline fit."""
+    ids = torch.searchsorted(edges_t, xs.T.contiguous(), side="left").T
+    catv = torch.nan_to_num(xs).clamp(0, max_bin - 1).to(torch.uint8)
+    b = torch.where(cat[None, :], catv, ids.to(torch.uint8))
+    return torch.where(torch.isnan(xs), 0, b)
 
 
 def bin_data_auto(x: np.ndarray, edges: np.ndarray,
@@ -962,9 +985,29 @@ def predict_raw(ens, x: np.ndarray, num_iteration: Optional[int] = None,
 
 
 def traced_raw_levelwise(params: dict, x, depth: int, K: int):
-    raise NotImplementedError(
-        "traced_raw_levelwise is the pipeline-capture body; it waits for "
-        "the core/capture.py port: ROADMAP.md Queue 1 item 11")
+    """The dense level-wise scoring body as a sync-free function of device
+    tensors — binning included — for cross-stage pipeline fusion
+    (core/capture.py): ``params = {feature, threshold, leaf, base,
+    edges}`` (the boosterState arrays on the device), ``x`` raw (n, d)
+    features. The math of :func:`predict_raw`'s dense path: per-feature
+    ``searchsorted`` binning (NaN -> bin 0, the ``bin_data`` contract),
+    then the per-tree walk of :func:`_predict_tree_t` over every row at
+    once (no host-sized chunks, so a CUDA graph captures it), the trees
+    summed in order onto the base score."""
+    xf = x.to(torch.float32)
+    edges = params["edges"].to(torch.float32)
+    edges = torch.where(torch.isnan(edges), torch.inf, edges)
+    ids = torch.searchsorted(edges, xf.T.contiguous(), side="left")
+    bins_t = torch.where(torch.isnan(xf.T), 0, ids).to(torch.int32)
+    feature, threshold = params["feature"], params["threshold"]
+    leaf = params["leaf"].to(torch.float32)
+    raw = params["base"].to(torch.float32)[None, :].expand(
+        x.shape[0], K).clone()
+    for t in range(feature.shape[0]):
+        raw = raw + torch.stack(
+            [_predict_tree_t(bins_t, feature[t, k], threshold[t, k],
+                             leaf[t, k], depth) for k in range(K)], dim=1)
+    return raw
 
 
 def prob_from_raw(objective: str, raw: np.ndarray) -> np.ndarray:

@@ -14,11 +14,18 @@ under leaf-wise growth the tail bundled into categorical composites by
 EFB, ``efb.py``), save/load, and JAX-fitted ``boosterState`` dicts of
 either kind, which the models take as they are. Not yet, each raising
 NotImplementedError: ``elasticConfig`` (ROADMAP item 13b); multi-process
-fits wait for the parallel/ port (item 12). ``capture``/``_fit_captured``
-wait for the core/capture.py port (item 11), and with them the fused fit's
-``gbdt.fused_bin`` profile and ``pipeline/fit_segment`` span. The
-growthPolicy='auto' reroute counts in
-``mmlspark_gbdt_auto_depthwise_reroutes``.
+fits wait for the parallel/ port (item 12). The growthPolicy='auto'
+reroute counts in ``mmlspark_gbdt_auto_depthwise_reroutes``.
+
+Pipeline fusion (core/capture.py): a level-wise model's ``capture`` is the
+dense traced walk (``engine.traced_raw_levelwise``, binning included) in
+place of the quantized predict kernel; a leaf-wise model does not capture
+and runs its staged transform between segments. ``_fit_captured`` is the
+fused featurize -> bin fit: the raw columns go up, the featurize body and
+the slab binner run as one program per slab (profile tag
+``gbdt.fused_bin``, span ``pipeline/fit_segment``), the bins stay on the
+card, and only the float32 labels and the <= 200k-row edge sample come
+back.
 """
 
 from __future__ import annotations
@@ -295,6 +302,148 @@ def _fit_ensemble(params_holder, x, y, objective, num_class=1, alpha=0.9,
                            device=params_holder.getOrDefault("device"))
 
 
+def _fused_categorical_slots(plan, feat_col, explicit):
+    """Fit-side twin of :func:`_categorical_slots`: the assembled
+    slot-range metadata comes from the capture plan
+    (FastVectorAssembler.capture_metadata, computed from the RAW frame)
+    instead of a materialized features column. No sparse selection on
+    the fused path, so no index remapping."""
+    idxs = [int(i) for i in explicit]
+    if not idxs:
+        meta = (plan.metadata or {}).get(feat_col) or {}
+        asm = meta.get(MML_TAG, {}).get("assembled")
+        if asm:
+            for slot in asm.get("slots", {}).values():
+                if slot.get("categorical") is not None \
+                        and slot.get("width") == 1:
+                    idxs.append(int(slot["start"]))
+    return tuple(sorted(set(idxs)))
+
+
+def _fused_bin_matrix(plan, raws, edges, cat_arr, max_bin, dev):
+    """featurize -> bin as ONE program per slab on ``dev``: raw wire-dtype
+    columns go up, the featurize body and the slab binner
+    (``engine._bin_slab_device``) run through the profiler's executable
+    cache (one CUDA graph per slab signature on a card), the uint8 bins
+    land in one (n, d) device tensor and only the float32 label column
+    comes back — the staged featurized float32 matrix never exists, on
+    the host or on the card. Slabs pad to power-of-two buckets like the
+    JAX package's, so ragged tails reuse a few signatures. Returns (bins
+    (n, d) uint8 on ``dev``, y (n,) float32 numpy)."""
+    import torch
+
+    from ... import telemetry
+    from ...core import capture as capturelib
+    n = len(raws[0])
+    d = int(edges.shape[0])
+    edges_t, cat = engine._slab_tables(edges, cat_arr, dev)
+    fp = plan.device_params(dev)
+
+    def body(*arrs):
+        xb, yb = plan.body(fp, arrs)
+        xb = xb.to(torch.float32)
+        xb = xb.reshape(xb.shape[0], -1)
+        return (engine._bin_slab_device(xb, edges_t, cat, int(max_bin)),
+                yb.to(torch.float32))
+
+    prog = telemetry.profiler.wrap(body, "gbdt.fused_bin", aot=True)
+    slab = engine._BIN_SLAB
+    out = torch.empty((n, d), dtype=torch.uint8, device=dev)
+    ys = []
+    uploaded = 0
+    for start in range(0, n, slab):
+        sl = [r[start:start + slab] for r in raws]
+        m = len(sl[0])
+        target = min(1 << max(0, int(np.ceil(np.log2(max(m, 1))))), slab)
+        if m < target:
+            sl = [np.concatenate(
+                [c, np.zeros((target - m,) + c.shape[1:], c.dtype)])
+                for c in sl]
+        uploaded += sum(int(c.nbytes) for c in sl)
+        bd, yd = prog(*(capturelib.upload(np.ascontiguousarray(c), dev)
+                        for c in sl))
+        out[start:start + m] = bd[:m]
+        ys.append(yd[:m])
+        capturelib._m_fit_fused.inc()
+    y = torch.cat(ys).cpu().numpy()
+    capturelib.count_fit_transfer("in", uploaded)
+    capturelib.count_fit_transfer("out", y.nbytes)
+    return out, y
+
+
+def _featurized_width(plan, raws) -> int:
+    """The featurized row width of ``plan`` over ``raws``, from a run of
+    its body on the meta device (shapes only, no data moves); -1 when the
+    body does not run there."""
+    from ...core.capture import meta_batch
+    try:
+        xb, _ = plan.body(plan.device_params("meta"), meta_batch(raws))
+    except Exception:
+        return -1
+    return int(np.prod(xb.shape[1:])) if xb.ndim > 1 else 1
+
+
+def _booster_fit_captured(stage, df, plan, finish):
+    """Shared LightGBM fused-fit hook (Pipeline.fit fusePipeline): the
+    composed featurize body feeds the device binner directly, so a
+    featurize->booster pipeline bins on the device from raw columns with
+    no staged featurize materialization. Returns None (-> Pipeline falls
+    back to the staged fit) when the path doesn't cover this fit:
+    multi-process (bin edges pool from raw row shards), elastic (the
+    wrapper re-pads raw rows per attempt), features wider than
+    ``maxDenseFeatures`` (selection and EFB need the host matrix), or raw
+    columns the plan cannot encode."""
+    import torch
+
+    from ... import telemetry
+    from ...core import capture as capturelib
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return None
+    if stage.getOrDefault("elasticConfig"):
+        return None
+    raws = plan.encode(df)
+    if raws is None:
+        return None
+    n = len(raws[0])
+    d = _featurized_width(plan, raws)
+    if d < 0 or d > stage.getMaxDenseFeatures():
+        return None
+    dev = engine.torch_device(stage.getOrDefault("device"))
+    max_bin = int(stage.getOrDefault("maxBin"))
+    cats = _fused_categorical_slots(plan, stage.getFeaturesCol(),
+                                    stage.getCategoricalSlotIndexes())
+    cat_arr = np.zeros(d, dtype=bool)
+    for j in cats:
+        cat_arr[j] = True
+    # quantile edges from a <= 200k-row featurized sample read back — the
+    # SAME rows compute_bin_edges samples from the staged matrix (same
+    # rng seed, same cap), so the edges match the staged fit bit for bit;
+    # nanquantile is order-invariant
+    cap = 200_000
+    if n > cap:
+        sidx = np.random.default_rng(0).choice(n, cap, replace=False)
+        s_raws = [np.ascontiguousarray(r[sidx]) for r in raws]
+    else:
+        s_raws = raws
+    with torch.no_grad():
+        xs_d, _ = plan.body(plan.device_params(dev), tuple(
+            capturelib.upload(r, dev) for r in s_raws))
+        xs = xs_d.to(torch.float32).reshape(len(s_raws[0]), -1) \
+            .cpu().numpy()
+    capturelib.count_fit_transfer("in",
+                                  sum(int(r.nbytes) for r in s_raws))
+    capturelib.count_fit_transfer("out", xs.nbytes)
+    edges = engine.compute_bin_edges(xs, max_bin)
+    with telemetry.trace.span("pipeline/fit_segment",
+                              stages=len(plan.pairs), rows=n, path="gbdt"), \
+            torch.no_grad():
+        bins, y = _fused_bin_matrix(plan, raws, edges, cat_arr, max_bin,
+                                    dev)
+    return finish(y, bins, edges, cats)
+
+
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
 
@@ -446,6 +595,38 @@ class _BoosterModel(Model, HasFeaturesCol):
                                   self.getFeatureSelection(),
                                   self.getFeatureBundles(), n_features)
 
+    def _capture_eligible(self, columns) -> bool:
+        """Fused predict covers the dense level-wise path: no leaf-wise
+        routing, no sparse feature selection / EFB bundles (host sparse
+        work), and not an explicit request for the quantized kernel (the
+        fused body is the dense walk)."""
+        state = self.getBoosterState()
+        return (state is not None and state.get("kind") != "leafwise"
+                and self.getFeatureSelection() is None
+                and not self.getFeatureBundles()
+                and self.getPredictImpl() in ("auto", "dense")
+                and self.getFeaturesCol() in columns)
+
+    def _capture_raw(self):
+        """``(raw(p, xs) -> (n, K) margins, params)`` of the level-wise
+        state: the dense traced walk over the boosterState arrays (the
+        STORED arrays — stable identity keeps the fused segment's program
+        cache warm across transforms)."""
+        import torch
+        state = self.getBoosterState()
+        leaf = np.asarray(state["leaf"])
+        depth = int(np.log2(leaf.shape[2]))
+        K = leaf.shape[1]
+
+        def raw(p, xs):
+            x = xs[0].to(torch.float32)
+            return engine.traced_raw_levelwise(
+                p, x.reshape(x.shape[0], -1), depth=depth, K=K)
+        params = {"feature": state["feature"],
+                  "threshold": state["threshold"], "leaf": state["leaf"],
+                  "base": state["base"], "edges": state["bin_edges"]}
+        return raw, params
+
 
 class LightGBMClassificationModel(_BoosterModel):
     rawPredictionCol = StringParam("raw margin column", default="rawPrediction")
@@ -464,6 +645,41 @@ class LightGBMClassificationModel(_BoosterModel):
                                               "classification")
         return SparkSchema.setScoredLabelsColumnName(
             out, self.getPredictionCol(), "classification")
+
+    def capture(self, columns):
+        """The dense predict as a pipeline capture
+        (engine.traced_raw_levelwise): binning + tree walk + probability
+        + argmax inside the enclosing segment's one program."""
+        from ...core.capture import StageCapture
+        if not self._capture_eligible(columns):
+            return None
+        raw_fn, params = self._capture_raw()
+        objective = self.getObjective()
+        raw_col, prob_col = self.getRawPredictionCol(), self.getProbabilityCol()
+        pred_col = self.getPredictionCol()
+
+        def fn(p, xs):
+            import torch
+            raw = raw_fn(p, xs)
+            if objective == "binary":
+                p1 = torch.sigmoid(raw[:, 0])
+                prob = torch.stack([1.0 - p1, p1], dim=1)
+            else:
+                prob = torch.softmax(raw, dim=-1)
+            pred = torch.argmax(prob, dim=-1).to(torch.float32)
+            return raw, prob, pred
+
+        def finalize(df):
+            out = SparkSchema.setScoresColumnName(df, prob_col,
+                                                  "classification")
+            return SparkSchema.setScoredLabelsColumnName(
+                out, pred_col, "classification")
+
+        return StageCapture(fn, inputs=(self.getFeaturesCol(),),
+                            outputs=(raw_col, prob_col, pred_col),
+                            params=params,
+                            host_cast={pred_col: np.float64},
+                            finalize=finalize, tag="gbdt.predict")
 
 
 class LightGBMClassifier(Estimator, HasFeaturesCol, HasLabelCol, _BoosterParams):
@@ -488,6 +704,26 @@ class LightGBMClassifier(Estimator, HasFeaturesCol, HasLabelCol, _BoosterParams)
                 .setFeatureBundles(bundles)
                 .setBoosterState(_ensemble_to_state(ens)))
 
+    def _fit_captured(self, df: DataFrame, plan):
+        """Fused-fit hook (Pipeline fusePipeline): featurize -> bin on the
+        device from raw columns, then grow trees from the binned matrix —
+        the staged featurized float32 matrix never materializes. Returns
+        None to fall back staged when the fused binner does not cover
+        this fit (see _booster_fit_captured)."""
+        def finish(y, bins, edges, cats):
+            num_class = _check_labels(y)
+            objective = "binary" if num_class <= 2 else "multiclass"
+            ens = _fit_ensemble(
+                self, None, y, objective,
+                num_class=(num_class if objective == "multiclass" else 1),
+                categorical=cats, binned=(bins, edges))
+            return (LightGBMClassificationModel()
+                    .setFeaturesCol(self.getFeaturesCol())
+                    .setObjective(objective)
+                    .setDevice(self.getDevice())
+                    .setBoosterState(_ensemble_to_state(ens)))
+        return _booster_fit_captured(self, df, plan, finish)
+
 
 class LightGBMRegressionModel(_BoosterModel):
     predictionCol = StringParam("prediction column", default="prediction")
@@ -499,6 +735,27 @@ class LightGBMRegressionModel(_BoosterModel):
         out = df.withColumn(self.getPredictionCol(), pred)
         return SparkSchema.setScoresColumnName(out, self.getPredictionCol(),
                                                "regression")
+
+    def capture(self, columns):
+        """Regression twin of the classifier capture: fused binning +
+        tree walk, prediction = the summed raw margin."""
+        from ...core.capture import StageCapture
+        if not self._capture_eligible(columns):
+            return None
+        raw_fn, params = self._capture_raw()
+        pred_col = self.getPredictionCol()
+
+        def fn(p, xs):
+            return (raw_fn(p, xs)[:, 0],)
+
+        def finalize(df):
+            return SparkSchema.setScoresColumnName(df, pred_col,
+                                                   "regression")
+
+        return StageCapture(fn, inputs=(self.getFeaturesCol(),),
+                            outputs=(pred_col,), params=params,
+                            host_cast={pred_col: np.float64},
+                            finalize=finalize, tag="gbdt.predict")
 
 
 class LightGBMRegressor(Estimator, HasFeaturesCol, HasLabelCol, _BoosterParams):
@@ -525,3 +782,16 @@ class LightGBMRegressor(Estimator, HasFeaturesCol, HasLabelCol, _BoosterParams):
                 .setFeatureSelection(sel)
                 .setFeatureBundles(bundles)
                 .setBoosterState(_ensemble_to_state(ens)))
+
+    def _fit_captured(self, df: DataFrame, plan):
+        """Regression twin of LightGBMClassifier._fit_captured."""
+        def finish(y, bins, edges, cats):
+            ens = _fit_ensemble(self, None, y, self.getApplication(),
+                                alpha=self.getAlpha(),
+                                categorical=cats, binned=(bins, edges))
+            return (LightGBMRegressionModel()
+                    .setFeaturesCol(self.getFeaturesCol())
+                    .setObjective(self.getApplication())
+                    .setDevice(self.getDevice())
+                    .setBoosterState(_ensemble_to_state(ens)))
+        return _booster_fit_captured(self, df, plan, finish)

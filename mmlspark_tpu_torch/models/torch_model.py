@@ -20,9 +20,11 @@ power-of-two bucket; ``transform`` replays it for batches of that bucket
 and runs eagerly otherwise. ``exportStableHLO`` writes a ``torch.export``
 program of the forward.
 
+``capture`` hands a fused pipeline segment (core/capture.py) the same
+module forward for flat float inputs (MLPs), run on the segment's device.
+
 Not ported yet, and raising when asked for: ``tensorParallel > 1`` (the
-``parallel/`` slice), ``capture`` (the capture slice), and the multi-host
-scoring path.
+``parallel/`` slice) and the multi-host scoring path.
 """
 
 from __future__ import annotations
@@ -275,9 +277,60 @@ class TorchModel(Transformer):
         return path
 
     def capture(self, columns):
-        raise NotImplementedError(
-            "cross-stage capture waits for the port of core/capture.py "
-            "(ROADMAP.md Queue 1 item 11)")
+        """The inference forward as a pipeline capture (cross-stage fusion,
+        core/capture.py): the SAME ``_WireForward`` of the device module
+        the staged transform runs, minus its chunking and bucketing — the
+        fused segment runs the whole batch in its one program. Offered
+        for non-TP, non-MoE models with flat float inputs (the wire shape
+        a fused column feed produces); image and token models keep the
+        staged transform's windowed dispatch."""
+        from ..core.capture import StageCapture
+        from .modules import example_input, sized_for
+        cfg = self.getModelConfig()
+        if (cfg is None or self.getModelParams() is None
+                or self.getInputCol() not in columns):
+            return None
+        if (cfg.get("num_experts", 0) > 0 or self.getTensorParallel() > 1
+                or self.getInputShape()):
+            return None
+        try:
+            ex = example_input(cfg)
+        except Exception:
+            return None
+        if ex.ndim != 2 or not ex.dtype.is_floating_point:
+            return None     # image/token models keep the staged wire path
+        ol = self.getOutputLayer() or None
+        wire = self.getTransferDtype()
+
+        def fn(p, xs):
+            x = xs[0].to(torch.float32)
+            x = x.reshape(x.shape[0], -1)
+            # built (and its weights uploaded) by the segment's first,
+            # uncaptured run; a capture finds it cached
+            module = self._device_module(x.device, sized_for(cfg, x.shape))
+            return (_WireForward(module, ol, wire)(x),)
+
+        # the weights live in the device module: nothing else to place.
+        # The host params still key the segment cache by identity, so new
+        # weights (setModelParams) re-capture
+        return StageCapture(fn, inputs=(self.getInputCol(),),
+                            outputs=(self.getOutputCol(),),
+                            params=self.getModelParams(),
+                            tag="torch_model.forward",
+                            place=lambda p, device: {})
+
+    def __getstate__(self):
+        # device state (the module on the card, its graphs) is rebuilt
+        # where the model is unpickled (a pipeline serving bundle)
+        state = dict(self.__dict__)
+        for k in ("_dev_module", "_dev_params_src", "_dev_module_key",
+                  "_graphs", "_graph_lane"):
+            state.pop(k, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._drop_graphs()
 
     def setModelParams(self, value) -> "TorchModel":
         """New weights: the device module and every captured graph of the

@@ -55,14 +55,26 @@ fit's steps bit for bit. ``fitStream`` trains from a fresh iterator of
 batches each epoch (out-of-core: ``io.loader.device_image_batches``,
 ``io.arrow.arrow_feature_batches`` or any generator).
 
+Fit-side pipeline fusion (core/capture.py): ``Pipeline(...,
+fusePipeline=True).fit`` hands the learner a capture plan of its featurize
+prefix (``_fit_captured``), and ``fitStreamCaptured`` takes one with a
+stream of raw batches. The learner then uploads the RAW wire-dtype columns
+(uint8 pixels ship as bytes, not as float32) on every path — scan, feed
+(with or without prefetch) and stream — and featurizes each step's batch
+on the device through one program per batch signature (one CUDA graph on
+a card: ``trainer.featurize``), ahead of the eager training step; each
+fused step counts on ``mmlspark_fit_fused_dispatches_total``. Its
+checkpoints record the plan's ``featurize_digest`` in the manifest, and a
+resume skips a checkpoint written under another plan.
+
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item when set away from their defaults: tensor/sequence/expert/pipeline
-parallelism (item 12) and elastic training (item 13b); also
-``fitStreamCaptured`` (item 11).
+parallelism (item 12) and elastic training (item 13b).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import sys
@@ -841,6 +853,12 @@ class TorchLearner(Estimator):
         path = self._ckpt_path(epoch, step)
         keep = self.getCheckpointKeepSteps()
         n_shards = self.getCheckpointShards()
+        # fused fits store LEARNER state only — featurize params are fit
+        # constants, recorded by digest so resume rejects a checkpoint
+        # written under a different featurize plan
+        plan = getattr(self, "_featurize_plan", None)
+        extra = ({"featurize_digest": plan.digest()}
+                 if plan is not None else None)
 
         def on_commit():
             # strictly after the rename + manifest commit: pruning only
@@ -858,11 +876,11 @@ class TorchLearner(Estimator):
                 return [write_flax_msgpack({keys[i]: flat[keys[i]]
                                             for i in idxs})
                         for idxs in parts]
-            publish = ckptlib.publish_sharded
+            publish = functools.partial(ckptlib.publish_sharded, extra=extra)
         else:
             def payload():
                 return write_flax_msgpack(self._ckpt_state(*snap.host()))
-            publish = ckptlib.publish
+            publish = functools.partial(ckptlib.publish, extra=extra)
         if self.getAsyncCheckpoint():
             self._ckpt_writer().submit(path, payload, on_commit=on_commit,
                                        publish_fn=publish)
@@ -913,8 +931,20 @@ class TorchLearner(Estimator):
         self._ckpt_barrier()   # an earlier fit's write lands first
         cfg = self._ckpt_cfg
         params, opt_state, scale_state = state
+        # a fused fit records its featurize plan by digest: a candidate
+        # committed under a DIFFERENT plan trained on different features,
+        # so it is skipped (no digest = a staged fit's: allowed)
+        plan = getattr(self, "_featurize_plan", None)
+        fdig = plan.digest() if plan is not None else None
+        manifest = ckptlib.load_manifest(d) or {}
         for pos, fname in self._ckpt_candidates():
             if not ckptlib.verify(d, fname):
+                continue
+            rec = (manifest.get(fname) or {}).get("featurize_digest")
+            if rec is not None and fdig is not None and rec != fdig:
+                log.warning("checkpoint %s was written under a different "
+                            "featurize plan — skipping it as a resume "
+                            "candidate", fname)
                 continue
             try:
                 st = self._restore_checkpoint(pos)
@@ -1065,18 +1095,38 @@ class TorchLearner(Estimator):
     def _fit(self, df: DataFrame) -> TorchModel:
         dev = self._device()
         cfg = self._cfg_with_precision(dict(self.getModelConfig()))
-        x, y = self._prepare_data(df, cfg)
-        n = len(x)
+        # fit-side pipeline fusion: when Pipeline.fit composed the
+        # featurize prefix into a capture plan (_fit_captured), training
+        # consumes RAW wire-dtype columns and featurizes each step's batch
+        # on the device — the staged (x, y) materialization is skipped
+        plan = getattr(self, "_featurize_plan", None)
+        feat = raws = None
+        if plan is not None:
+            raws = plan.encode(df)
+            if raws is None:
+                from ..core import capture as capturelib
+                capturelib._m_fit_fallbacks.inc()
+                log.warning("fused fit fell back to staged featurization:"
+                            " a raw input column is not device-encodable")
+                df = plan.apply_staged(df)
+                plan = None
+        if plan is None:
+            x, y = self._prepare_data(df, cfg)
+            data, n, x_shape = (x, y), len(x), x.shape
+        else:
+            feat = self._featurize_fn(plan, dev)
+            data, n = tuple(raws), len(raws[0])
+            x_shape = (n,) + self._featurized_shape(plan, raws)
         if n == 0:
             raise ValueError("fit on an empty DataFrame")
-        step, state = self._training_setup(cfg, x.shape, dev)
+        step, state = self._training_setup(cfg, x_shape, dev)
         state, start_epoch, start_step = self._resume_training_state(state,
                                                                      dev)
         bs = max(1, min(self.getBatchSize(), n))
         steps = max(1, n // bs)
         data_cap = self.getDeviceDataCap() or _device_data_cap(dev)
         rng_np = np.random.default_rng(self.getSeed())
-        scan = x.nbytes + y.nbytes <= data_cap
+        scan = sum(a.nbytes for a in data) <= data_cap
         run = self._run_epochs_scan if scan else self._run_epochs
         profile = self.getProfile()
         if profile:
@@ -1085,11 +1135,13 @@ class TorchLearner(Estimator):
         try:
             with full_precision_matmuls(self.getPrecision() == "f32"), \
                     telemetry.trace.span("fit", model=cfg.get("type"),
-                                         rows=n, path=path):
-                state, stats = run(x, y, n, bs, steps, order_rng=rng_np,
+                                         rows=n, path=path,
+                                         fused=plan is not None):
+                state, stats = run(data, n, bs, steps, order_rng=rng_np,
                                    dev=dev, step=step, state=state,
                                    start_epoch=start_epoch,
-                                   start_step=start_step, profile=profile)
+                                   start_step=start_step, profile=profile,
+                                   feat=feat)
         finally:
             # an async checkpoint still in flight lands before the caller
             # (or a refit) reads the directory
@@ -1136,14 +1188,23 @@ class TorchLearner(Estimator):
             return self._fit_stream(batches_fn)
 
     def _fit_stream(self, batches_fn) -> TorchModel:
+        from ..core import capture as capturelib
         dev = self._device()
         cfg = self._cfg_with_precision(dict(self.getModelConfig()))
+        # fitStreamCaptured: batches are RAW wire-dtype columns, featurized
+        # on the device ahead of each step
+        plan = getattr(self, "_featurize_plan", None)
+        feat = self._featurize_fn(plan, dev) if plan is not None else None
         first_iter = iter(batches_fn())
         first = next(first_iter, None)
         if first is None:
             raise ValueError("batches_fn() yielded no batches")
-        x0, _ = _stream_batch(first, cfg, self.getLoss())
-        step, state = self._training_setup(cfg, tuple(x0.shape), dev)
+        if plan is None:
+            x_shape = tuple(_stream_batch(first, cfg, self.getLoss())[0].shape)
+        else:
+            raw0 = self._stream_raw_batch(first, plan)
+            x_shape = (len(raw0[0]),) + self._featurized_shape(plan, raw0)
+        step, state = self._training_setup(cfg, x_shape, dev)
         state, start_epoch, start_step = self._resume_training_state(state,
                                                                      dev)
         if start_step:
@@ -1169,8 +1230,8 @@ class TorchLearner(Estimator):
                               else iter(batches_fn()))
                     t0 = time.perf_counter()
                     steps_it = prefetched(
-                        lambda s=stream: self._stream_epoch_steps(s, cfg,
-                                                                  dev),
+                        lambda s=stream: self._stream_epoch_steps(
+                            s, cfg, dev, plan),
                         depth=self.getPrefetchDepth(), name="fit-stream",
                         span="fit/prefetch")
                     steps_run = rows = 0
@@ -1183,10 +1244,15 @@ class TorchLearner(Estimator):
                                 def dispatch(_a, st=state, xb=xb, yb=yb,
                                              wb=wb):
                                     faults.inject("trainer.step")
+                                    if feat is not None:
+                                        # xb is the placed raw columns
+                                        xb, yb = feat(*xb)
                                     return step(*st, xb, yb, wb)
                                 *new, loss = _STEP_RETRY.run(dispatch)
                                 state = tuple(new)
                                 sp.set_sync(loss)
+                            if feat is not None:
+                                capturelib._m_fit_fused.inc()
                             _m_step_time.observe(time.perf_counter()
                                                  - t_step)
                             steps_run += 1
@@ -1211,12 +1277,35 @@ class TorchLearner(Estimator):
             stats["scale_state"] = prec.scale_state_to_host(state[2])
         return self._package_model(cfg, state[0], stats)
 
-    def _stream_epoch_steps(self, stream, cfg, dev):
+    def _stream_epoch_steps(self, stream, cfg, dev, plan=None):
         """One epoch of fitStream's per-batch host work as a generator:
         normalise -> pow2 bucket -> zero pad -> weight mask -> copy to the
         device. Yields ``(n_real, xb, yb, wb)`` with the batch on its way
         to the device, so the consuming loop (the prefetch thread running
-        this ahead of it) only dispatches steps."""
+        this ahead of it) only dispatches steps.
+
+        With a fit-side capture ``plan`` (fitStreamCaptured) the batch
+        stays RAW: each wire-dtype column buckets and pads on its own, and
+        ``xb`` is the tuple of placed columns (``yb`` None) —
+        featurization happens on the device, ahead of the step."""
+        from ..core import capture as capturelib
+        while plan is not None:
+            b = next(stream, None)
+            if b is None:
+                return
+            raws = self._stream_raw_batch(b, plan)
+            n = len(raws[0])
+            target = _next_pow2(n)
+            raws = [_pad_rows(r, target) for r in raws]
+            wb = np.zeros(target, dtype=np.float32)
+            wb[:n] = 1.0
+            nbytes = int(sum(r.nbytes for r in raws))
+            if telemetry.enabled():
+                _note_step_signature("stream_fused", *raws, wb)
+                _m_transfer_bytes.inc(nbytes + wb.nbytes)
+            capturelib.count_fit_transfer("in", nbytes)
+            yield (n, tuple(_to_device(r, dev) for r in raws), None,
+                   _to_device(wb, dev))
         for b in stream:
             xb, yb = _stream_batch(b, cfg, self.getLoss())
             n = len(xb)
@@ -1232,7 +1321,120 @@ class TorchLearner(Estimator):
             yield n, _placed(xb, dev), _placed(yb, dev), _to_device(wb, dev)
 
     def fitStreamCaptured(self, batches_fn, plan) -> TorchModel:
-        raise _not_ported("fitStreamCaptured (fit-side capture)", 11)
+        """:meth:`fitStream` with a fit-side capture plan
+        (``core.capture.compose_fit_capture``): every item ``batches_fn()``
+        yields is a DataFrame holding ``plan.in_names`` or a tuple of RAW
+        column arrays aligned with them (wire dtypes; featurization runs
+        on the device ahead of each step). Single-process only."""
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise ValueError("fitStreamCaptured is single-process; "
+                             "multi-process streams run staged fitStream")
+        cfg = dict(self.getModelConfig() or {})
+        if cfg.get("type") in TOKEN_MODELS:
+            raise ValueError("fused stream fit needs a featurized-vector "
+                             "model family, not a token model")
+        self._featurize_plan = plan
+        try:
+            return self.fitStream(batches_fn)
+        finally:
+            self._featurize_plan = None
+
+    # ---- fit-side pipeline fusion (core/capture.py) ----
+    def _fit_captured(self, df: DataFrame, plan) -> Optional[TorchModel]:
+        """The fused-fit hook ``Pipeline.fit(fusePipeline=True)`` calls:
+        train with ``plan`` (a :class:`~..core.capture.FitCapturePlan`)
+        featurizing each step's raw batch on the device, or return None
+        to decline (the pipeline then falls back to the staged fit).
+        Declines the model families whose input is not a featurized
+        vector batch (token models) and the mesh axes the fused feed does
+        not thread (seq/expert/pipe)."""
+        cfg = dict(self.getModelConfig() or {})
+        if (cfg.get("type") in TOKEN_MODELS
+                or self.getSequenceParallel() > 1
+                or self.getExpertParallel() > 1
+                or self.getPipelineParallel() > 1):
+            return None
+        self._featurize_plan = plan
+        try:
+            return self.fit(df)
+        finally:
+            self._featurize_plan = None
+
+    def _stream_raw_batch(self, b, plan) -> list:
+        """A fitStreamCaptured batch as raw column arrays in
+        ``plan.in_names`` order, in device dtypes — either a DataFrame
+        carrying those columns, or an already-aligned tuple/list of
+        arrays."""
+        from ..core import capture as capturelib
+        if isinstance(b, DataFrame):
+            raws = plan.encode(b)
+            if raws is None:
+                raise ValueError(
+                    "fitStreamCaptured batch is missing (or cannot encode) "
+                    f"one of the captured input columns {plan.in_names}")
+            return raws
+        arrs = [capturelib.wire_array(
+            a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a))
+            for a in b]
+        if len(arrs) != len(plan.in_names):
+            raise ValueError(
+                f"fitStreamCaptured batch has {len(arrs)} arrays; the "
+                f"capture plan needs {len(plan.in_names)} "
+                f"({plan.in_names})")
+        return arrs
+
+    def _featurize_body(self, plan, dev):
+        """The featurize adapter of a fused fit: ``plan.body`` plus the
+        staged path's input conventions (float32 features, a 1-D column
+        as (n, 1), the inputShape CHW -> NHWC reshape made contiguous as
+        the staged upload is, loss-dtype labels), so fused and staged fits
+        see identical ``(xb, yb)``."""
+        shape = tuple(self.getInputShape())
+        ce = self.getLoss() == "cross_entropy"
+        fp = plan.device_params(dev)
+
+        def feat(*raw):
+            with torch.no_grad():
+                xb, yb = plan.body(fp, raw)
+                xb = xb.to(torch.float32)
+                if xb.ndim == 1:
+                    xb = xb[:, None]
+                if shape:
+                    c, h, w = shape
+                    xb = xb.reshape(-1, c, h, w).permute(0, 2, 3, 1) \
+                        .contiguous()
+                yb = yb.to(torch.int32 if ce else torch.float32)
+            return xb, yb
+        return feat
+
+    def _featurize_fn(self, plan, dev):
+        """The featurize program of a fused fit on ``dev``: one CUDA graph
+        per raw batch signature on a card (the profiler's AOT cache,
+        ``trainer.featurize``), the function itself on the CPU; the
+        training step after it stays eager, as the staged fit's does.
+        Cached ON THE LEARNER, keyed on the plan, the learner's params and
+        the device: a kill-and-resume re-enters fit() on the same
+        instance, and reusing the same ProfiledFunction is what makes
+        "zero new captures across a resume" assertable."""
+        cache = self.__dict__.setdefault("_fused_programs", {})
+        key = (plan.key(), repr(sorted(self._jsonParams().items())),
+               str(dev))
+        pf = cache.get(key)
+        if pf is None:
+            pf = cache[key] = telemetry.profiler.wrap(
+                self._featurize_body(plan, dev), "trainer.featurize",
+                aot=True)
+        return pf
+
+    def _featurized_shape(self, plan, raws) -> tuple:
+        """The per-row shape ``(xb.shape[1:])`` the featurize adapter gives
+        ``raws``: a run on the meta device (shapes only, no data moves),
+        what sizes the model as the staged batch would."""
+        from ..core.capture import meta_batch
+        body = self._featurize_body(plan, torch.device("meta"))
+        return tuple(body(*meta_batch(raws))[0].shape[1:])
 
     def _finish_epoch(self, epoch: int, loss, stats: dict, t0: float,
                       rows: int, scale_state):
@@ -1257,11 +1459,15 @@ class TorchLearner(Estimator):
                    if last_good is not None
                    else "Set checkpointDir to make divergence resumable."))
 
-    def _run_epochs(self, x, y, n, bs, steps, *, order_rng, dev, step,
-                    state, start_epoch=0, start_step=0, profile=False):
+    def _run_epochs(self, data, n, bs, steps, *, order_rng, dev, step,
+                    state, start_epoch=0, start_step=0, profile=False,
+                    feat=None):
         """The per-step feed path: one permutation per epoch, bs rows per
         step with cyclic wrap, staged ``prefetchDepth`` steps ahead. A step
-        checkpoint re-enters its epoch at the next step."""
+        checkpoint re-enters its epoch at the next step. ``data`` is
+        ``(x, y)``, or with ``feat`` (a fused fit) the raw columns that
+        ``feat`` turns into the step's ``(x, y)`` on the device."""
+        from ..core import capture as capturelib
         from ..parallel.prefetch import prefetched
         wb = torch.ones(bs, dtype=torch.float32, device=dev)  # every row real
         if profile:
@@ -1280,12 +1486,16 @@ class TorchLearner(Estimator):
                 s0 = start_step if epoch == start_epoch else 0
                 for s in range(s0, steps):
                     idx = order[(s * bs + np.arange(bs)) % n]
-                    xh, yh = x[idx], y[idx]
+                    cols = [a[idx] for a in data]
+                    nbytes = sum(c.nbytes for c in cols)
                     if telemetry.enabled():
-                        _note_step_signature("feed", xh, yh)
-                        _m_transfer_bytes.inc(xh.nbytes + yh.nbytes)
-                    yield (epoch, s, _to_device(xh, dev),
-                           _to_device(yh, dev))
+                        _note_step_signature(
+                            "feed" if feat is None else "feed_fused", *cols)
+                        _m_transfer_bytes.inc(nbytes)
+                    if feat is not None:
+                        capturelib.count_fit_transfer("in", nbytes)
+                    yield (epoch, s,
+                           tuple(_to_device(c, dev) for c in cols))
 
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "steps_per_epoch": steps, "batch_rows": bs}
@@ -1296,16 +1506,19 @@ class TorchLearner(Estimator):
         t0 = time.perf_counter()
         epoch_steps = 0
         try:
-            for epoch, s, xb, yb in it:
+            for epoch, s, cols in it:
                 t_step = time.perf_counter()
                 with telemetry.trace.span("fit/step", epoch=epoch,
                                           step=s) as sp:
-                    def dispatch(_a, st=state, xb=xb, yb=yb):
+                    def dispatch(_a, st=state, cols=cols):
                         faults.inject("trainer.step")
+                        xb, yb = cols if feat is None else feat(*cols)
                         return step(*st, xb, yb, wb)
                     *new, loss = _STEP_RETRY.run(dispatch)
                     state = tuple(new)
                     sp.set_sync(loss)
+                if feat is not None:
+                    capturelib._m_fit_fused.inc()
                 _m_step_time.observe(time.perf_counter() - t_step)
                 epoch_steps += 1
                 if s < steps - 1:
@@ -1322,12 +1535,16 @@ class TorchLearner(Estimator):
             it.close()
         return state, stats
 
-    def _run_epochs_scan(self, x, y, n, bs, steps, *, order_rng, dev, step,
-                         state, start_epoch=0, start_step=0, profile=False):
+    def _run_epochs_scan(self, data, n, bs, steps, *, order_rng, dev, step,
+                         state, start_epoch=0, start_step=0, profile=False,
+                         feat=None):
         """The device-resident path: the epoch (padded to ``steps * bs``
         rows, pad rows weight 0, plus a bs-row wrap margin) lives on the
         device, and each step is a window of it. Checkpoints are taken at
-        epoch ends; a step checkpoint restarts its epoch."""
+        epoch ends; a step checkpoint restarts its epoch. ``data`` is
+        ``(x, y)``, or with ``feat`` (a fused fit) the raw columns, which
+        stay raw on the device; ``feat`` featurizes each window."""
+        from ..core import capture as capturelib
         if start_step:
             # the windows of an epoch are drawn together; restart the
             # epoch — the params already hold the checkpointed steps
@@ -1342,11 +1559,11 @@ class TorchLearner(Estimator):
         # datasets get a fresh permutation per epoch, big ones permute once
         # at upload and vary by rotation + window order
         reshuffle = (self.getShuffle()
-                     and x.nbytes + y.nbytes <= (self.getEpochReshuffleCap()
-                                                 or _EPOCH_RESHUFFLE_CAP))
+                     and sum(a.nbytes for a in data)
+                     <= (self.getEpochReshuffleCap() or _EPOCH_RESHUFFLE_CAP))
         if self.getShuffle() and not reshuffle:
             perm0 = order_rng.permutation(n)
-            x, y = x[perm0], y[perm0]
+            data = tuple(a[perm0] for a in data)
         w_all = np.zeros(n_pad, dtype=np.float32)
         w_all[:n] = 1.0
 
@@ -1354,27 +1571,30 @@ class TorchLearner(Estimator):
             ap = _wrap_rows(a, n_pad)
             return _to_device(np.concatenate([ap, ap[:bs]], axis=0), dev)
 
-        def upload(*host_arrs):
+        def upload(host_arrs):
             nbytes = int(sum(a.nbytes for a in host_arrs))
             if telemetry.enabled():
                 _m_transfer_bytes.inc(nbytes)
+            if feat is not None:
+                capturelib.count_fit_transfer("in", nbytes)
             with telemetry.trace.span("fit/upload", bytes=nbytes):
                 return tuple(margin(a) for a in host_arrs)
 
-        def run_window(p, o, ss, x_dev, y_dev, w_dev, window):
+        def run_window(p, o, ss, data_dev, w_dev, window):
             """One dispatch: eager steps over windows of the resident
             epoch, the state never leaving the device."""
             loss = None
             for s0 in window:
-                p, o, ss, loss = step(p, o, ss, x_dev[s0:s0 + bs],
-                                      y_dev[s0:s0 + bs], w_dev[s0:s0 + bs])
+                cols = tuple(a[s0:s0 + bs] for a in data_dev)
+                xb, yb = cols if feat is None else feat(*cols)
+                p, o, ss, loss = step(p, o, ss, xb, yb, w_dev[s0:s0 + bs])
             return p, o, ss, loss
 
         if profile:
             run_window = telemetry.profiler.wrap(run_window,
                                                  "trainer.scan_epoch")
         if not reshuffle:
-            x_dev, y_dev = upload(x, y)
+            data_dev = upload(data)
         w_dev = margin(w_all)
         kpd = self.getStepsPerDispatch() or steps
         base = np.arange(steps, dtype=np.int32) * bs
@@ -1392,7 +1612,7 @@ class TorchLearner(Estimator):
             t0 = time.perf_counter()
             if reshuffle:
                 perm = order_rng.permutation(n)
-                x_dev, y_dev = upload(x[perm], y[perm])
+                data_dev = upload([a[perm] for a in data])
                 starts = base
             elif self.getShuffle():
                 starts = ((base[order_rng.permutation(steps)]
@@ -1410,11 +1630,13 @@ class TorchLearner(Estimator):
                             steps=min(kpd, steps - lo)) as sp:
                         def dispatch(_a, st=state, lo=lo):
                             faults.inject("trainer.step")
-                            return run_window(*st, x_dev, y_dev, w_dev,
+                            return run_window(*st, data_dev, w_dev,
                                               starts[lo:lo + kpd])
                         *new, loss = _STEP_RETRY.run(dispatch)
                         state = tuple(new)
                         sp.set_sync(loss)
+                    if feat is not None:
+                        capturelib._m_fit_fused.inc(min(kpd, steps - lo))
                     _m_step_time.observe(time.perf_counter() - t_disp)
                 ep_sp.set_sync(loss)
             self._finish_epoch(epoch, loss, stats, t0, steps * bs, state[2])

@@ -41,6 +41,7 @@ class ImageTransformer(Transformer):
     run as one chain per shape bucket on ``device``.
     """
 
+    _uncapturable = True
     inputCol = StringParam("input image column", default="image")
     outputCol = StringParam("output image column", default="out")
     stages = ListParam("list of {op, **params} dicts", default=())

@@ -229,6 +229,7 @@ class Word2VecModel(Model, _W2VParams):
 class Word2Vec(Estimator, _W2VParams):
     """Learn word embeddings by skip-gram negative sampling in batched steps
     on ``device`` (Spark ML Word2Vec surface; notebook-202 workflow)."""
+    _uncapturable = True
 
     device = StringParam(
         "torch device the SGNS steps run on: 'cuda' (default), 'cuda:N' or "

@@ -139,9 +139,12 @@ def _commit_manifest(directory: str, files: dict):
     os.replace(tmp, path)
 
 
-def publish(path: str, data: bytes):
+def publish(path: str, data: bytes, extra: Optional[dict] = None):
     """Commit one checkpoint file: tmp write + fsync (site ``ckpt.write``),
-    atomic rename (site ``ckpt.rename``), manifest entry committed last."""
+    atomic rename (site ``ckpt.rename``), manifest entry committed last.
+    ``extra`` merges additional JSON-able keys into the manifest entry —
+    e.g. the trainer's fused-fit ``featurize_digest``, which resume uses
+    to reject candidates written under a different featurize plan."""
     directory, name = os.path.split(path)
     t0 = time.perf_counter()
     with telemetry.trace.span("ckpt/write", file=name, bytes=len(data)):
@@ -155,7 +158,8 @@ def publish(path: str, data: bytes):
         os.replace(tmp, path)
         files = load_manifest(directory) or {}
         files[name] = {"size": len(data),
-                       "sha256": hashlib.sha256(data).hexdigest()}
+                       "sha256": hashlib.sha256(data).hexdigest(),
+                       **(extra or {})}
         _commit_manifest(directory, files)
     _m_write_seconds.observe(time.perf_counter() - t0)
 
@@ -256,11 +260,13 @@ def parse_head(data: bytes):
         return None
 
 
-def commit_sharded(path: str, shard_names) -> None:
+def commit_sharded(path: str, shard_names,
+                   extra: Optional[dict] = None) -> None:
     """The LAST step of a sharded save: verify every shard
     on disk (size + sha256 recorded into the manifest), publish the head
     under the canonical name, then commit the manifest whose head entry
-    carries the ``shards`` map. Raises OSError when a shard vanished —
+    carries the ``shards`` map (plus any ``extra`` keys, as
+    :func:`publish`). Raises OSError when a shard vanished —
     the save fails loudly rather than committing a torn record."""
     directory, name = os.path.split(path)
     shards = {}
@@ -283,11 +289,12 @@ def commit_sharded(path: str, shard_names) -> None:
         files = load_manifest(directory) or {}
         files[name] = {"size": len(data),
                        "sha256": hashlib.sha256(data).hexdigest(),
-                       "shards": shards}
+                       "shards": shards, **(extra or {})}
         _commit_manifest(directory, files)
 
 
-def publish_sharded(path: str, shard_payloads) -> None:
+def publish_sharded(path: str, shard_payloads,
+                    extra: Optional[dict] = None) -> None:
     """Single-writer sharded commit: write every shard, then the head +
     manifest commit. The layout is the JAX package's multi-host one, so
     either package resumes it."""
@@ -297,7 +304,7 @@ def publish_sharded(path: str, shard_payloads) -> None:
         sname = shard_name(os.path.basename(path), i)
         write_shard(os.path.join(os.path.dirname(path), sname), data)
         names.append(sname)
-    commit_sharded(path, names)
+    commit_sharded(path, names, extra=extra)
     _m_write_seconds.observe(time.perf_counter() - t0)
 
 

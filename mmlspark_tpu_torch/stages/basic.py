@@ -10,9 +10,12 @@ stage in a ``torch.profiler.record_function`` range (and an NVTX range when
 the inner stage runs on a CUDA device), and ``Profiler(traceDir=...)``
 records it with ``torch.profiler.profile`` into a Chrome trace.
 
-Not ported: the ``capture`` methods (the JAX package's fused-pipeline hook,
-ROADMAP.md Queue 1 item 11), and ``ClassBalancer``'s fleet-wide class
-count merge over a sharded frame (item 12): the port's frames are never
+DropColumns, SelectColumns, RenameColumn and FastVectorAssembler expose a
+``capture`` (core/capture.py: their work as tensor code inside a fused
+pipeline segment); the host-only stages carry ``_uncapturable = True``.
+
+Not ported: ``ClassBalancer``'s fleet-wide class count merge over a
+sharded frame (ROADMAP.md Queue 1 item 12): the port's frames are never
 sharded.
 """
 
@@ -23,6 +26,7 @@ import time
 
 import numpy as np
 
+from ..core.capture import StageCapture
 from ..core.dataframe import DataFrame
 from ..core.params import (BooleanParam, ComplexParam, HasInputCol,
                            HasOutputCol, IntParam, ListParam, Params,
@@ -36,6 +40,7 @@ log = get_logger("stages")
 class Cacher(Transformer):
     """Materialize + cache (reference Cacher.scala:12). The columnar frame is
     already materialized; this pins it (no-op hook kept for API parity)."""
+    _uncapturable = True        # host materialization point by definition
     disable = BooleanParam("pass through without caching", default=False)
 
     def transform(self, df: DataFrame) -> DataFrame:
@@ -44,6 +49,7 @@ class Cacher(Transformer):
 
 class CheckpointData(Transformer):
     """Persist to memory/disk (reference CheckpointData.scala:47)."""
+    _uncapturable = True        # host persistence point
     diskIncluded = BooleanParam("also spill to disk", default=False)
     removeCheckpoint = BooleanParam("unpersist instead", default=False)
 
@@ -60,6 +66,11 @@ class DropColumns(Transformer):
             raise ValueError(f"cannot drop missing columns {missing}")
         return df.drop(*self.getCols())
 
+    def capture(self, columns):
+        if any(c not in columns for c in self.getCols()):
+            return None     # staged transform raises the real error
+        return StageCapture(lambda p, xs: (), drops=tuple(self.getCols()))
+
 
 class SelectColumns(Transformer):
     cols = ListParam("columns to keep", default=())
@@ -67,15 +78,31 @@ class SelectColumns(Transformer):
     def transform(self, df: DataFrame) -> DataFrame:
         return df.select(*self.getCols())
 
+    def capture(self, columns):
+        keep = set(self.getCols())
+        if any(c not in columns for c in keep):
+            return None     # staged transform raises the real error
+        return StageCapture(lambda p, xs: (),
+                            drops=tuple(c for c in columns
+                                        if c not in keep))
+
 
 class RenameColumn(Transformer, HasInputCol, HasOutputCol):
     def transform(self, df: DataFrame) -> DataFrame:
         return df.withColumnRenamed(self.getInputCol(), self.getOutputCol())
 
+    def capture(self, columns):
+        old, new = self.getInputCol(), self.getOutputCol()
+        if old not in columns:
+            return None
+        return StageCapture(lambda p, xs: (xs[0],), inputs=(old,),
+                            outputs=(new,), drops=(old,), tag="rename")
+
 
 class Repartition(Transformer):
     """Adjust logical partition count (reference Repartition.scala:18 with its
     `disable` flag)."""
+    _uncapturable = True        # host partition bookkeeping
     n = IntParam("target partition count", default=1, min=1)
     disable = BooleanParam("pass through unchanged", default=False)
 
@@ -87,6 +114,7 @@ class UDFTransformer(Transformer, HasInputCol, HasOutputCol):
     """Apply a python function per row value, or to the whole column when
     vectorized=True (reference UDFTransformer.scala:21; the python-UDF path
     of UDPyFParam)."""
+    _uncapturable = True        # arbitrary python — untraceable by contract
     udf = ComplexParam("function value->value (or column->column)", default=None)
     vectorized = BooleanParam("udf takes the whole column array", default=False)
 
@@ -120,6 +148,7 @@ class ClassBalancer(Estimator, HasInputCol, HasOutputCol):
 
 
 class ClassBalancerModel(Model, HasInputCol, HasOutputCol):
+    _uncapturable = True        # dict lookup over arbitrary (string) keys
     weightTable = ComplexParam("class value -> weight", default=None)
 
     def transform(self, df: DataFrame) -> DataFrame:
@@ -133,6 +162,7 @@ class ClassBalancerModel(Model, HasInputCol, HasOutputCol):
 class MultiColumnAdapter(Transformer):
     """Map a unary stage over (inputCol, outputCol) pairs (reference
     MultiColumnAdapter.scala:17)."""
+    _uncapturable = True        # meta-stage: fit-and-transform inner stages
     baseStage = ComplexParam("unary PipelineStage to replicate", default=None)
     inputCols = ListParam("input columns", default=())
     outputCols = ListParam("output columns", default=())
@@ -184,6 +214,7 @@ class Timer(Transformer):
     ``Timer/<inner class>`` — what a running ``torch.profiler`` trace
     shows — and, when the inner stage runs on a CUDA device, an NVTX range
     of the same name for external GPU tools."""
+    _uncapturable = True        # wrapping semantics (times the inner stage)
     stage = ComplexParam("inner PipelineStage", default=None)
     logToConsole = BooleanParam("print timing", default=True)
     logToProfiler = BooleanParam(
@@ -222,6 +253,7 @@ class Profiler(Transformer):
     pipeline-stages/.../Timer.scala:36-70). It records CPU activity, and
     CUDA activity too when the inner stage runs on a CUDA device. The
     written path lands on ``_last_trace``."""
+    _uncapturable = True        # wrapping semantics (profiles the inner stage)
     stage = ComplexParam("inner PipelineStage", default=None)
     traceDir = StringParam("directory for the Chrome trace", default="")
 
@@ -289,3 +321,50 @@ class FastVectorAssembler(Transformer, HasOutputCol):
             offset += width
         meta = {MML_TAG: {"assembled": {"size": offset, "slots": slots}}}
         return df.withColumn(self.getOutputCol(), out, metadata=meta)
+
+    def capture(self, columns):
+        """Assembly is one concatenation — pure device work. The fused
+        form skips the categorical slot-range metadata: on the transform
+        side nothing downstream reads it, and the fit side gets it from
+        :meth:`capture_metadata` (no staged frame needed)."""
+        cols = tuple(self.getInputCols())
+        if not cols or any(c not in columns for c in cols):
+            return None
+
+        def fn(p, xs):
+            import torch
+            parts = [x.to(torch.float32).reshape(x.shape[0], -1)
+                     for x in xs]
+            return (torch.cat(parts, dim=1),)
+
+        return StageCapture(fn, inputs=cols,
+                            outputs=(self.getOutputCol(),))
+
+    def capture_metadata(self, df):
+        """The assembled categorical slot-range metadata, computed from
+        the RAW frame for the fit-side capture (GBDT auto-categorical
+        detection reads it while the fused fit never materializes the
+        assembled column on the host). Best-effort: None when an input
+        column is absent from the raw frame (a prefix stage produced or
+        renamed it — widths and attributes are then unknowable without
+        staging) or when an object column is empty."""
+        from ..core.schema import MML_TAG
+        cols = self.getInputCols()
+        if not cols or any(c not in df.columns for c in cols):
+            return None
+        slots = {}
+        offset = 0
+        for name in cols:
+            col = df.col(name)
+            if col.dtype == object:
+                if not len(col):
+                    return None
+                width = int(np.asarray(col[0]).size)
+            else:
+                width = int(np.prod(col.shape[1:])) if col.ndim > 1 else 1
+            cat = df.metadata(name).get(MML_TAG, {}).get("categorical")
+            if cat is not None:
+                slots[name] = {"start": offset, "width": width,
+                               "categorical": cat}
+            offset += width
+        return {MML_TAG: {"assembled": {"size": offset, "slots": slots}}}

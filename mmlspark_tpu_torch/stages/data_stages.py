@@ -5,16 +5,19 @@ SummarizeData.scala:98, ensemble/.../EnsembleByKey.scala:21,
 pipeline-stages TextPreprocessor.scala:97); the port of
 ``mmlspark_tpu/stages/data_stages.py``.
 
-Host numpy over the columnar frame, as in the JAX package. Not ported: the
-``capture`` methods (the fused-pipeline hook, ROADMAP.md Queue 1 item 11)
-and the sharded-frame branches of CleanMissingData and SummarizeData (the
-fleet-wide merges of item 12): the port's frames are never sharded, so
-every statistic here is the exact single-frame one."""
+Host numpy over the columnar frame, as in the JAX package.
+CleanMissingDataModel and DataConversion also expose a ``capture``
+(core/capture.py): their work as tensor code inside a fused pipeline
+segment, in device dtypes. Not ported: the sharded-frame branches of
+CleanMissingData and SummarizeData (the fleet-wide merges of ROADMAP.md
+Queue 1 item 12): the port's frames are never sharded, so every statistic
+here is the exact single-frame one."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.capture import StageCapture
 from ..core.dataframe import DataFrame
 from ..core.params import (BooleanParam, ComplexParam, DictParam, FloatParam,
                            HasInputCol, HasOutputCol, IntParam, ListParam,
@@ -62,6 +65,33 @@ class CleanMissingDataModel(Model):
             df = df.withColumn(o, np.where(np.isnan(vals), fills[c], vals))
         return df
 
+    def capture(self, columns):
+        """Imputation as one ``where(isnan)`` per column against the fill
+        as a device constant. The fused path computes in float32 (device
+        dtype) where the host path returns float64; values are identical
+        at float32 precision."""
+        ins = tuple(self.getInputCols())
+        outs = tuple(self.getOutputCols())
+        if not ins or len(ins) != len(outs) \
+                or any(c not in columns for c in ins):
+            return None
+        fills = self.getFillValues()
+        if fills is None or any(c not in fills for c in ins):
+            return None
+
+        def fn(p, xs):
+            import torch
+            out = []
+            for x, f in zip(xs, p["fills"]):
+                xf = x.to(torch.float32)
+                out.append(torch.where(torch.isnan(xf), f, xf))
+            return tuple(out)
+
+        return StageCapture(fn, inputs=ins, outputs=outs,
+                            params={"fills": [float(fills[c])
+                                              for c in ins]},
+                            host_cast={o: np.float64 for o in outs})
+
 
 class DataConversion(Transformer):
     """Column type casts + date reformat (reference DataConversion.scala:23).
@@ -98,10 +128,35 @@ class DataConversion(Transformer):
                 raise ValueError(f"unknown conversion target {target!r}")
         return df
 
+    #: numeric targets the fused path covers: device compute dtypes are
+    #: float32/int32, so wide targets cast at readback (host_cast) —
+    #: values identical wherever they fit the device dtype
+    _CAPTURE_TARGETS = {"float": (np.float32, np.float32),
+                        "double": (np.float32, np.float64),
+                        "integer": (np.int32, np.int32),
+                        "boolean": (np.bool_, np.bool_)}
+
+    def capture(self, columns):
+        target = self.getConvertTo()
+        cols = tuple(self.getCols())
+        if target not in self._CAPTURE_TARGETS or not cols \
+                or any(c not in columns for c in cols):
+            return None
+        dev_dtype, host_dtype = self._CAPTURE_TARGETS[target]
+
+        def fn(p, xs):
+            import torch
+            dt = torch.from_numpy(np.zeros(0, dev_dtype)).dtype
+            return tuple(x.to(dt) for x in xs)
+
+        return StageCapture(fn, inputs=cols, outputs=cols,
+                            host_cast={c: host_dtype for c in cols})
+
 
 class PartitionSample(Transformer):
     """head / random % / assign-to-partition sampling (reference
     PartitionSample.scala:131)."""
+    _uncapturable = True        # host RNG + row-count-changing semantics
     mode = StringParam("Head|RandomSample|AssignToPartition",
                        default="RandomSample",
                        choices=("Head", "RandomSample", "AssignToPartition"))
@@ -126,6 +181,7 @@ class PartitionSample(Transformer):
 class SummarizeData(Transformer):
     """Per-column stats table (reference SummarizeData.scala:98): counts,
     basic moments, percentiles, error-count toggles."""
+    _uncapturable = True        # emits a fresh stats table
     counts = BooleanParam("row/missing counts", default=True)
     basic = BooleanParam("mean/std/min/max", default=True)
     percentiles = BooleanParam("p25/p50/p75", default=True)
@@ -190,6 +246,7 @@ class SummarizeData(Transformer):
 class EnsembleByKey(Transformer):
     """Group rows by key column(s) and aggregate vector/double columns by
     mean or collect (reference EnsembleByKey.scala:21)."""
+    _uncapturable = True        # host groupBy over arbitrary key dtypes
     keys = ListParam("key columns", default=())
     cols = ListParam("value columns to aggregate", default=())
     strategy = StringParam("mean|collect", default="mean",
@@ -218,6 +275,7 @@ class EnsembleByKey(Transformer):
 class TextPreprocessor(Transformer, HasInputCol, HasOutputCol):
     """Longest-match substring replacement via a trie (reference
     TextPreprocessor.scala:97 builds a char trie over the map keys)."""
+    _uncapturable = True        # python string scanning
     map = DictParam("substring -> replacement", default=None)
     normFunc = StringParam("identity|lowerCase|upperCase", default="identity",
                            choices=("identity", "lowerCase", "upperCase"))

@@ -15,6 +15,7 @@ from ..core.pipeline import Transformer
 class MiniBatchTransformer(Transformer):
     """Pack every column into lists of up to batchSize elements; output has
     ceil(n / batchSize) rows, each cell a list."""
+    _uncapturable = True        # host row re-packing (row count changes)
     batchSize = IntParam("max rows per batch", default=10, min=1)
 
     def transform(self, df: DataFrame) -> DataFrame:
@@ -34,6 +35,7 @@ class MiniBatchTransformer(Transformer):
 class FlattenBatch(Transformer):
     """Inverse of MiniBatchTransformer: explode list-valued cells back to
     one row per element."""
+    _uncapturable = True        # host row re-packing (row count changes)
 
     def transform(self, df: DataFrame) -> DataFrame:
         cols = df.columns

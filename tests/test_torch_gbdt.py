@@ -366,8 +366,18 @@ def test_unported_paths_raise_naming_their_roadmap_items():
         teng.fit_gbdt(x, y, p, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         teng.fit_gbdt_elastic(x, y, p, checkpoint_dir="unused")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teng.traced_raw_levelwise({}, x, 3, 1)
+    # the pipeline-capture body is ported: the traced walk over every row
+    # gives the dense predict's margins (NaN rows included)
+    ens = teng.fit_gbdt(x, y, teng.GBDTParams(num_iterations=3, max_depth=3,
+                                              max_bin=16), device="cpu")
+    xn = x.copy()
+    xn[::7, 1] = np.nan
+    params = {"feature": ens.feature, "threshold": ens.threshold,
+              "leaf": ens.leaf, "base": torch.from_numpy(ens.base),
+              "edges": torch.from_numpy(ens.bin_edges)}
+    got = teng.traced_raw_levelwise(params, torch.from_numpy(xn), 3, 1)
+    np.testing.assert_array_equal(
+        got.numpy(), teng.predict_raw(ens, xn, predict_impl="dense"))
     with pytest.raises(NotImplementedError, match="item 13"):
         tstages.LightGBMClassifier(
             device="cpu", growthPolicy="depthwise",

@@ -171,7 +171,8 @@ def test_serve_continuous_matches_jax_over_http(flax_trees, name):
 def test_step_surface(tel, flax_trees):
     """compile_buckets captures (on the CPU: runs) each bucket once,
     idempotently; hits and misses count; decode checks its size; the
-    output mode is validated; a pipeline body waits for item 11."""
+    output mode is validated; a pipeline composite replies with its
+    pipeline's predictions."""
     step = _step("convnet", flax_trees, max_batch=32, output="argmax")
     assert step.warm_buckets() == []
     assert step.compile_buckets() == 3
@@ -191,8 +192,27 @@ def test_step_surface(tel, flax_trees):
         step.decode(base64.b64encode(b"\x00" * 8).decode())
     with pytest.raises(ValueError, match="argmax|scores"):
         _step("convnet", flax_trees, output="probabilities")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FusedServingStep.from_pipeline(None)
+    # from_pipeline is ported: an assembler -> logistic regression
+    # composite replies with the pipeline's own predictions
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.core.utils import object_column
+    from mmlspark_tpu_torch.models.classical import LogisticRegressionModel
+    from mmlspark_tpu_torch.stages.basic import FastVectorAssembler
+    r = np.random.default_rng(4)
+    pm = PipelineModel(stages=(
+        FastVectorAssembler(inputCols=("features",), outputCol="v"),
+        LogisticRegressionModel(featuresCol="v",
+                                coefficients=r.normal(size=(5, 3)),
+                                intercept=r.normal(size=3))))
+    composite = FusedServingStep.from_pipeline(
+        pm, row_shape=(5,), device="cpu",
+        policy=BucketPolicy(max_batch=8, min_bucket=8))
+    xs = r.normal(size=(6, 5)).astype(np.float32)
+    want = pm.transform(DataFrame({"features": object_column(list(xs))}))
+    assert [json.loads(o)["label"] for o in composite(
+        [base64.b64encode(x.tobytes()).decode() for x in xs])] == \
+        want.col("prediction").astype(int).tolist()
     if not torch.cuda.is_available():   # the default device is cuda
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FusedServingStep(CCFG, flax_trees["convnet"],

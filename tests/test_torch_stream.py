@@ -194,8 +194,19 @@ def test_token_ids_out_of_range_raise():
 def test_parallelism_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="item 12"):
         _learner(sequenceParallel=2).fitStream(_stream_fn())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _learner().fitStreamCaptured(_stream_fn(), None)
+    # fitStreamCaptured is ported: raw batches through a one-stage plan
+    # train exactly as fitStream over the staged batches
+    from mmlspark_tpu_torch.core.capture import compose_fit_capture
+    from mmlspark_tpu_torch.stages.basic import FastVectorAssembler
+    frames = [DataFrame({"x": xb.astype(np.float64), "label": yb})
+              for xb, yb in _stream_fn(batches=3)()]
+    asm = FastVectorAssembler(inputCols=("x",), outputCol="features")
+    plan = compose_fit_capture([asm], frames[0], "features", "label")
+    fused = _learner().fitStreamCaptured(lambda: iter(frames), plan)
+    staged = _learner().fitStream(lambda: (
+        (np.stack(list(asm.transform(f).col("features"))), f.col("label"))
+        for f in frames))
+    assert _params_equal(fused, staged)
 
 
 def test_stream_batch_keeps_uint8_wire():

@@ -380,7 +380,9 @@ def test_fit_stream_and_cuda_without_a_card_raise():
     with pytest.raises(ValueError, match="no batches"):
         learner.fitStream(lambda: iter(()))
     learner = TorchLearner(modelConfig=CFG, featuresCol="tokens")
-    with pytest.raises(NotImplementedError):
+    # fitStreamCaptured is ported; a token model has no featurized batch
+    # to fuse, so it refuses (as the JAX learner does)
+    with pytest.raises(ValueError, match="token model"):
         learner.fitStreamCaptured(lambda: iter(()), None)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
