@@ -306,6 +306,25 @@ Phases, each printing one JSON line:
    replay equal to eager bit for bit; requests/s, p50/p99 of a closed loop
    of 8 clients; ``save_bundle`` -> a restarted worker warm with 0 captures
    and 0 nvcc runs.
+19. parallel — ``parallel/`` and the MoE transformer (``MOE_CFG``:
+   SLICE_CFG with 4 experts, top-2, capacity 1.25, ``PAR_*``). (a)
+   ``TorchModel.transform`` of ROWS x SEQ at MINI_BATCH after ``warmup``:
+   row 1 launched layers x chunks times, the scores within TOL_SLICE of the
+   plain version on the card (blockwise attention, the one-hot dispatch of
+   ``moe.moe_one_hot``), the replay equal to the eager model bit for bit;
+   rows/s, tokens/s, peak memory, the profile of one transform. (b) One MoE
+   layer at PAR_DISPATCH_ROWS x SEQ tokens: the index dispatch's expert
+   buffer equal to the one-hot einsum's bit for bit, the combine within
+   TOL_DISPATCH; each form's ms and peak bytes. (c) ``TorchLearner`` on
+   MOE_CFG (no remat, adam, ``moeAuxWeight``), PAR_TRAIN_BATCH x SEQ a
+   step: finite losses, rows 1-3 layers times each a step, one step's
+   gradients flash against blockwise attention within TOL_TRAIN_GRAD; step
+   ms, tokens/s, peak memory. (d) A one-rank NCCL group over a TCPStore on
+   127.0.0.1 (``parallel.distributed``): the barrier, an object gather, a
+   PAR_NCCL_LAYERS-layer fit equal to the same fit with no group bit for
+   bit, a transform through ``_transform_multihost`` equal to the plain
+   one bit for bit, and tensor/sequence/expert/pipeline parallelism 2 each
+   raising the JAX package's ValueError on one rank.
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -507,6 +526,23 @@ TOL_SERVE_L2, TOL_SERVE_GAP = 2e-2, 5e-2
 # fits can be compared bit for bit. The pipeline composite: buckets 1..16,
 # 256 requests sent 8 at a time, a closed loop of 8 clients over 64, 32
 # again to the restarted worker
+# the parallel phase (parallel/, models/moe.py): SLICE_CFG with 4 experts
+# (top-2, capacity 1.25: the repo's MoE choice, __graft_entry__.py:96),
+# served at ROWS x SEQ and trained at PAR_TRAIN_BATCH x SEQ a step
+# (PAR_TRAIN_ROWS rows, PAR_TRAIN_EPOCHS epochs, adam, no remat: MoE
+# refuses it); one MoE layer's dispatch at PAR_DISPATCH_ROWS x SEQ tokens,
+# the index form against the one-hot einsums; the one-rank NCCL fit at
+# PAR_NCCL_LAYERS layers on PAR_NCCL_ROWS rows
+MOE_CFG = dict(SLICE_CFG, num_experts=4, expert_top_k=2,
+               capacity_factor=1.25)
+PAR_TRAIN_ROWS, PAR_TRAIN_BATCH, PAR_TRAIN_EPOCHS = 16, 8, 2
+PAR_MOE_AUX = 0.01
+PAR_DISPATCH_ROWS = 2
+PAR_NCCL_LAYERS, PAR_NCCL_ROWS = 2, 16
+# the index dispatch's combined output against the one-hot einsums': the
+# gate rounds to bf16 in both, the sums of two products round once in f32
+# here and in the einsum's accumulator there (max |delta| / max |ref|)
+TOL_DISPATCH = 1e-2
 FUSION_NAN_COLS = (3, 11, 19)
 FUSION_BATCHES, FUSION_EPOCHS = 4, 2
 FUSION_SERVE_LATENCY_REQS, FUSION_SERVE_CLIENTS = 64, 8
@@ -4898,6 +4934,290 @@ def phase_fusion(torch, env, dev="cuda"):
             "serve_predict": serving["launches"]["predict"]}
 
 
+# ---------------------------------------------------------------- parallel
+
+def moe_params(rng) -> dict:
+    """Random weights of MOE_CFG in the JAX package's flax tree shape:
+    slice_params' blocks with the FFN swapped for ``MoEMLP_0`` (gate and
+    expert stacks normal, std 0.02; expert biases 0)."""
+    base = slice_params(rng)["params"]
+    d, E = MOE_CFG["d_model"], MOE_CFG["num_experts"]
+    hid = MOE_CFG["mlp_ratio"] * d
+    for i in range(MOE_CFG["layers"]):
+        blk = base[f"block{i}"]
+        del blk["Dense_2"], blk["Dense_3"]
+        blk["MoEMLP_0"] = {
+            "gate": rng.standard_normal((d, E), dtype=np.float32) * 0.02,
+            "expert_w1": rng.standard_normal((E, d, hid),
+                                             dtype=np.float32) * 0.02,
+            "expert_b1": np.zeros((E, hid), np.float32),
+            "expert_w2": rng.standard_normal((E, hid, d),
+                                             dtype=np.float32) * 0.02,
+            "expert_b2": np.zeros((E, d), np.float32)}
+    return {"params": base}
+
+
+@contextlib.contextmanager
+def one_hot_moe():
+    """Every MoE block runs the plain version: the JAX body's dense (S, E,
+    C) one-hot dispatch and combine (``moe.moe_one_hot``)."""
+    from mmlspark_tpu_torch.models import moe
+    orig = moe.MoEMLP.forward
+
+    def plain(self, x, row_mask=None, aux=None):
+        y, a = moe.moe_one_hot(self, x, row_mask)
+        if aux is not None:
+            aux.append(a)
+        return y
+    moe.MoEMLP.forward = plain
+    try:
+        yield
+    finally:
+        moe.MoEMLP.forward = orig
+
+
+def parallel_serve(torch, dev):
+    """(a) MoE serving at full width: TorchModel.transform of ROWS x SEQ
+    at MINI_BATCH after warmup (one graph per bucket), against the plain
+    version (blockwise attention, one-hot dispatch) and the eager model."""
+    from mmlspark_tpu_torch import DataFrame, TorchModel
+    rng = np.random.default_rng(SEED + 21)
+    params = moe_params(rng)
+    tokens = rng.integers(0, MOE_CFG["vocab_size"], size=(ROWS, SEQ),
+                          dtype=np.int32)
+    df = DataFrame({"tokens": tokens})
+
+    def model(cfg):
+        return TorchModel(inputCol="tokens", outputCol="scores",
+                          modelConfig=cfg, modelParams=params,
+                          miniBatchSize=MINI_BATCH, device=dev)
+    served = model(MOE_CFG)
+    served.warmup(df)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    scores = np.stack(served.transform(df).col("scores"))
+    launches = kernel_counts()
+    chunks = -(-ROWS // MINI_BATCH)
+    L = MOE_CFG["layers"]
+    if dev == "cuda":
+        check(launches == {"fwd": L * chunks, "dq": 0, "dkv": 0},
+              f"MoE serving launched {launches}, expected "
+              f"{L} x {chunks} forward launches")
+    check(scores.shape == (ROWS, MOE_CFG["num_classes"])
+          and bool(np.isfinite(scores).all()), "MoE scores")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        served.transform(df)
+        times.append(time.perf_counter() - t0)
+    steady = statistics.median(times)
+    breakdown = (device_breakdown(torch, lambda: served.transform(df))
+                 if dev == "cuda" else None)
+    eager = np.stack(model(MOE_CFG).transform(df).col("scores"))
+    check(np.array_equal(eager, scores),
+          "MoE graph replay differs from the eager model's bits")
+    before = kernel_counts()
+    with one_hot_moe():
+        plain = np.stack(model(dict(MOE_CFG, attn_impl="blockwise"))
+                         .transform(df).col("scores"))
+    check(kernel_counts() == before, "the plain MoE model launched a kernel")
+    err = float(np.abs(scores - plain).max())
+    check(err <= TOL_SLICE, f"MoE scores differ from the plain version "
+                            f"(blockwise, one-hot dispatch) by {err}")
+    return {"rows": ROWS, "seq": SEQ, "mini_batch": MINI_BATCH,
+            "launches": launches, "max_abs_err_vs_plain": err,
+            "replay_equals_eager": True, "steady_transform_s": steady,
+            "rows_per_s": ROWS / steady, "tokens_per_s": ROWS * SEQ / steady,
+            "peak_mem_gb": peak, "profile_of_one_transform": breakdown}
+
+
+def parallel_dispatch(torch, dev):
+    """(b) One MoE layer at PAR_DISPATCH_ROWS x SEQ tokens: the index
+    dispatch's xin equal to the one-hot einsum's bit for bit, the combined
+    output within TOL_DISPATCH; each form's ms and peak bytes."""
+    from mmlspark_tpu_torch.models.moe import MoEMLP, moe_one_hot
+    rng = np.random.default_rng(SEED + 22)
+    d, E = MOE_CFG["d_model"], MOE_CFG["num_experts"]
+    hid = MOE_CFG["mlp_ratio"] * d
+    layer = MoEMLP(E, hid, top_k=MOE_CFG["expert_top_k"],
+                   capacity_factor=MOE_CFG["capacity_factor"],
+                   dtype=torch.bfloat16, d_model=d).to(dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(p.shape), dtype=np.float32) * 0.02))
+    x = torch.from_numpy(rng.standard_normal(
+        (PAR_DISPATCH_ROWS, SEQ, d), dtype=np.float32)).to(dev).to(
+            torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        y, xin = layer(x), layer.dispatch(x)[0]
+        y_ref, _, xin_ref = moe_one_hot(layer, x, return_xin=True)
+        cb = xin.shape[1]
+        check(torch.equal(xin, xin_ref[:, :cb])
+              and not bool(xin_ref[:, cb:].any()),
+              "the index dispatch's xin differs from the one-hot einsum's")
+        err = ((y.float() - y_ref.float()).abs().max()
+               / y_ref.float().abs().max()).item()
+        check(err <= TOL_DISPATCH,
+              f"index combine differs from the one-hot einsum by {err}")
+        for name, fn in (("index", lambda: layer(x)),
+                         ("one_hot", lambda: moe_one_hot(layer, x))):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fn()
+                torch.cuda.synchronize()
+                out[f"{name}_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                             - base)
+                out[f"{name}_ms"] = cuda_ms(torch, fn, iters=5)
+    C = int(MOE_CFG["capacity_factor"] * PAR_DISPATCH_ROWS * SEQ
+            * MOE_CFG["expert_top_k"] / E)
+    return dict(out, tokens=PAR_DISPATCH_ROWS * SEQ, capacity=C,
+                buffer_slots=cb, max_rel_err_combine=err,
+                xin_bit_equal=True)
+
+
+def parallel_train(torch, dev):
+    """(c) MoE training at full width: TorchLearner, adam, moeAuxWeight,
+    PAR_TRAIN_BATCH x SEQ tokens a step, no remat: finite losses, rows 1-3
+    launched layers times each a step, one step's gradients flash against
+    blockwise attention."""
+    from mmlspark_tpu_torch import DataFrame, TorchLearner
+    rng = np.random.default_rng(SEED + 23)
+    tokens = rng.integers(0, MOE_CFG["vocab_size"],
+                          size=(PAR_TRAIN_ROWS, SEQ), dtype=np.int32)
+    labels = rng.integers(0, MOE_CFG["num_classes"], size=PAR_TRAIN_ROWS,
+                          dtype=np.int32)
+    df = DataFrame({"tokens": tokens, "label": labels})
+    learner = TorchLearner(featuresCol="tokens", modelConfig=MOE_CFG,
+                           optimizer="adam", learningRate=1e-3,
+                           batchSize=PAR_TRAIN_BATCH,
+                           epochs=PAR_TRAIN_EPOCHS, seed=SEED,
+                           moeAuxWeight=PAR_MOE_AUX, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    model = learner.fit(df)
+    launches = kernel_counts()
+    stats = model._fit_stats
+    steps = stats["steps_per_epoch"] * PAR_TRAIN_EPOCHS
+    L = MOE_CFG["layers"]
+    if dev == "cuda":
+        check(launches == {"fwd": L * steps, "dq": L * steps,
+                           "dkv": L * steps},
+              f"MoE training launched {launches}, expected {L} x {steps} "
+              f"each")
+    losses = stats["epoch_losses"]
+    check(all(np.isfinite(losses)), f"MoE epoch losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0
+    step_ms = stats["epoch_seconds"][-1] / stats["steps_per_epoch"] * 1e3
+    errs = step_grad_errors(torch, MOE_CFG, tokens, labels, device=dev)
+    worst = max(errs, key=lambda k: errs[k]["l2_rel"])
+    check(errs[worst]["l2_rel"] <= TOL_TRAIN_GRAD,
+          f"MoE step gradient of {worst} differs from blockwise "
+          f"attention's: {errs[worst]}")
+    return {"rows": PAR_TRAIN_ROWS, "batch": PAR_TRAIN_BATCH,
+            "steps": steps, "launches": launches, "epoch_losses": losses,
+            "step_ms": step_ms,
+            "train_tokens_per_s": PAR_TRAIN_BATCH * SEQ / step_ms * 1e3,
+            "peak_mem_gb": peak, "worst_grad": worst,
+            "worst_grad_l2_rel_vs_blockwise": errs[worst]["l2_rel"]}
+
+
+def parallel_one_rank(torch, dev):
+    """(d) A one-rank process group (NCCL on the card, over a TCPStore on
+    127.0.0.1): the barrier, an object gather, a small-depth DP fit equal
+    to the same fit with no group bit for bit, a transform through
+    ``_transform_multihost`` equal to the plain transform, and
+    tensor/sequence/expert/pipeline parallelism 2 each raising the JAX
+    package's ValueError on one rank."""
+    import socket
+
+    import torch.distributed as tdist
+    from mmlspark_tpu_torch import DataFrame, TorchLearner
+    from mmlspark_tpu_torch.parallel import dataplane, distributed
+    cfg = dict(SLICE_CFG, layers=PAR_NCCL_LAYERS)
+    rng = np.random.default_rng(SEED + 24)
+    tokens = rng.integers(0, cfg["vocab_size"], size=(PAR_NCCL_ROWS, SEQ),
+                          dtype=np.int32)
+    labels = rng.integers(0, cfg["num_classes"], size=PAR_NCCL_ROWS,
+                          dtype=np.int32)
+    df = DataFrame({"tokens": tokens, "label": labels})
+
+    def learner(**kw):
+        return TorchLearner(featuresCol="tokens", modelConfig=cfg,
+                            optimizer="adam", learningRate=1e-3,
+                            batchSize=MINI_BATCH, epochs=1, seed=SEED,
+                            device=dev, **kw)
+    plain = learner().fit(df)
+    plain_scores = np.stack(plain.setMiniBatchSize(MINI_BATCH)
+                            .transform(df).col("scores"))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, init_timeout=60,
+                           device=dev)
+    init_s = time.perf_counter() - t0
+    try:
+        check(tdist.get_backend() == ("nccl" if dev == "cuda" else "gloo"),
+              f"the group's backend is {tdist.get_backend()}")
+        distributed.process_barrier("parallel")
+        check(dataplane.allgather_pyobj({"rank": 0}) == [{"rank": 0}],
+              "object gather")
+        reset_kernel_counts()
+        group_fit = learner().fit(df)
+        fit_launches = kernel_counts()
+        check(group_fit._fit_stats["path"] == plain._fit_stats["path"],
+              "the one-rank fit took another path")
+        a, b = plain.getModelParams(), group_fit.getModelParams()
+        check(a.keys() == b.keys()
+              and all(torch.equal(a[k], b[k]) for k in a),
+              "the one-rank NCCL fit differs from the no-group fit")
+        scores = np.stack(group_fit.setMiniBatchSize(MINI_BATCH)
+                          .transform(df).col("scores"))
+        check(np.array_equal(scores, plain_scores),
+              "the one-rank transform (_transform_multihost) differs from "
+              "the plain transform")
+        refusals = {}
+        for knob in ("tensorParallel", "sequenceParallel", "expertParallel",
+                     "pipelineParallel"):
+            try:
+                learner(**{knob: 2}).fit(df)
+            except ValueError as e:
+                refusals[knob] = str(e)
+        check(len(refusals) == 4, f"one rank ran a 2-way axis: {refusals}")
+    finally:
+        distributed.shutdown()
+    return {"backend": "nccl" if dev == "cuda" else "gloo",
+            "init_s": init_s, "fit_bit_equal": True,
+            "transform_bit_equal": True, "fit_launches": fit_launches,
+            "fit_path": group_fit._fit_stats["path"],
+            "refusals": refusals}
+
+
+def phase_parallel(torch, env, dev="cuda"):
+    """parallel/ and models/moe.py on the card: (a) MoE serving, (b) the
+    MoE dispatch, (c) MoE training, each at full width, and (d) a one-rank
+    NCCL process group. Returns each path's kernel launches."""
+    t_phase = time.perf_counter()
+    serve = parallel_serve(torch, dev)
+    dispatch = parallel_dispatch(torch, dev)
+    train = parallel_train(torch, dev)
+    one_rank = parallel_one_rank(torch, dev)
+    emit({"phase": "parallel", "config": MOE_CFG, "serve_moe": serve,
+          "dispatch": dispatch, "train_moe": train, "one_rank": one_rank,
+          "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+    return {"serve_moe": serve["launches"], "train_moe": train["launches"]}
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -4913,7 +5233,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
           "vision_train", "automl_tabular", "automl_text", "platform",
-          "ingest", "serving", "fusion")
+          "ingest", "serving", "fusion", "parallel")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -4933,6 +5253,7 @@ PHASE_FNS = {
     "ingest": phase_ingest,
     "serving": phase_serving,
     "fusion": phase_fusion,
+    "parallel": phase_parallel,
 }
 
 
@@ -4998,6 +5319,7 @@ def main(argv=None) -> int:
     phase_ingest(torch, env)
     serving = phase_serving(torch, env)
     fusion = phase_fusion(torch, env)
+    parallel = phase_parallel(torch, env)
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],
@@ -5029,7 +5351,9 @@ def main(argv=None) -> int:
                               "train": train["fwd"],
                               "serve_continuous": serving["fwd"],
                               "transform_graphs":
-                                  serving["transform_graphs"]},
+                                  serving["transform_graphs"],
+                              "serve_moe": parallel["serve_moe"]["fwd"],
+                              "train_moe": parallel["train_moe"]["fwd"]},
          "max_abs_err": worst["out"], "max_err": worst["out"],
          "max_lse_err": worst["lse"],
          "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
@@ -5040,6 +5364,8 @@ def main(argv=None) -> int:
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": replaces + "107", "launches": train["dq"],
+         "launches_by_path": {"train": train["dq"],
+                              "train_moe": parallel["train_moe"]["dq"]},
          "max_abs_err": bwd_worst["dq_abs"], "max_err": bwd_worst["dq"],
          "max_rel_l2_err": bwd_worst["dq_l2"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
@@ -5049,6 +5375,8 @@ def main(argv=None) -> int:
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": replaces + "155", "launches": train["dkv"],
+         "launches_by_path": {"train": train["dkv"],
+                              "train_moe": parallel["train_moe"]["dkv"]},
          "max_abs_err": bwd_worst["dkv_abs"], "max_err": bwd_worst["dkv"],
          "max_rel_l2_err": bwd_worst["dkv_l2"],
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"],

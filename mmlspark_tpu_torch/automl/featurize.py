@@ -12,8 +12,8 @@ parts concatenate into ONE dense f32 matrix (FastVectorAssembler analog,
 core/spark/FastVectorAssembler.scala:18-34), built column-block-wise.
 
 Not ported yet: merging per-process plans of a sharded frame
-(``_merge_sharded_plans``, ROADMAP.md Queue 1 item 12); the port has no
-sharded frame.
+(``_merge_sharded_plans``, ROADMAP.md Queue 1 item 12b); a sharded frame
+fits as its local shard.
 """
 
 from __future__ import annotations

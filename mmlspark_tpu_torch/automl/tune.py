@@ -12,7 +12,7 @@ chip_smoke.py's search ~4.5x slower than 1 (ROADMAP.md Queue 3, measured
 by ``tools/automl_tune_threads.py``). The best setting is refit on the full
 data. Not ported yet: the supervised ``backend="fleet"`` (ASHA
 over ``trials.py``/``scheduler.py``, ROADMAP.md Queue 1 item 13b) and the
-multi-process search of a process fleet (item 12).
+multi-process search of a process fleet (item 12b).
 """
 
 from __future__ import annotations

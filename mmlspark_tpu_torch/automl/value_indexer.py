@@ -6,7 +6,7 @@ Fits a dictionary over a column's distinct values, transforms values to
 indices, and records the levels in column metadata (the reference's
 categorical-levels contract, Categoricals.scala) so downstream learners and
 IndexToValue can decode. Not ported yet: the fleet-wide dictionary of a
-sharded frame (ROADMAP.md Queue 1 item 12)."""
+sharded frame (ROADMAP.md Queue 1 item 12b)."""
 
 from __future__ import annotations
 

@@ -30,7 +30,7 @@ off): the spans ``gbdt/fit``, ``gbdt/bin``, ``gbdt/iter/step`` (one per
 iteration: the serial engine fuses gradients, the K trees and the raw
 update into one step, as the JAX engine's serial path does; its
 ``gbdt/iter/{grad,build,apply}`` spans belong to the sharded builders of
-item 12) and ``gbdt/eval``; the iteration, iteration-time, eval-time and
+item 12b) and ``gbdt/eval``; the iteration, iteration-time, eval-time and
 bin-time metrics; the predict gauges; ``profiler.wrap(...,
 "gbdt.predict_quant")`` around the quantized predicts; and a device memory
 sample per iteration and per predict while the profiler is on.
@@ -40,7 +40,7 @@ sync-free function of device tensors, binning included: a fused pipeline
 segment (core/capture.py) runs it inside its one program.
 
 Not ported yet, each raising NotImplementedError: a mesh or a
-multi-process fit, level-wise or leaf-wise (ROADMAP item 12), and
+multi-process fit, level-wise or leaf-wise (ROADMAP item 12b), and
 ``fit_gbdt_elastic`` (item 13b).
 """
 
@@ -107,7 +107,7 @@ class GBDTParams(NamedTuple):
                               # (auto = the node-histogram kernel on CUDA,
                               # the compare hybrid on the CPU)
     # LightGBM tree_learner: on one card every fit is serial (the
-    # distributed learners wait for the parallel/ port, ROADMAP item 12)
+    # distributed learners wait for the parallel/ port, ROADMAP item 12b)
     tree_learner: str = "data"      # data | feature | auto | serial
     num_leaves: int = 0             # > 0: leaf-wise growth (leafwise.py)
     categorical_feature: tuple = ()
@@ -540,7 +540,7 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
         raise NotImplementedError(
             "mesh-sharded GBDT fits (tree_learner data/feature/auto over "
             "several devices, level-wise or leaf-wise) wait for the "
-            "parallel/ port: ROADMAP.md Queue 1 item 12")
+            "parallel/ port: ROADMAP.md Queue 1 item 12b")
     if elastic_ctx is not None:
         raise NotImplementedError(
             "elastic boosted fits wait for the resilience/ elastic runtime: "
@@ -550,7 +550,7 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             "multi-process GBDT fits (level-wise or leaf-wise) wait for the "
-            "parallel/ port: ROADMAP.md Queue 1 item 12")
+            "parallel/ port: ROADMAP.md Queue 1 item 12b")
     n, d = (binned[0].shape if binned is not None else x.shape)
     with telemetry.trace.span("gbdt/fit", rows=int(n), features=int(d),
                               objective=params.objective,

@@ -36,7 +36,7 @@ words each holding 32 bits (torch's uint32 has few kernels); the fitted
 state carries them as uint32, as the JAX package's does.
 
 Not ported: the mesh-sharded builder (``make_sharded_builder_lw``), which
-waits for the parallel/ port (ROADMAP item 12).
+waits for the GBDT half of the parallel/ port (ROADMAP item 12b).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ under leaf-wise growth the tail bundled into categorical composites by
 EFB, ``efb.py``), save/load, and JAX-fitted ``boosterState`` dicts of
 either kind, which the models take as they are. Not yet, each raising
 NotImplementedError: ``elasticConfig`` (ROADMAP item 13b); multi-process
-fits wait for the parallel/ port (item 12). The growthPolicy='auto'
+fits wait for the GBDT half of the parallel/ port (item 12b). The growthPolicy='auto'
 reroute counts in ``mmlspark_gbdt_auto_depthwise_reroutes``.
 
 Pipeline fusion (core/capture.py): a level-wise model's ``capture`` is the

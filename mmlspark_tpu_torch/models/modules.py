@@ -109,10 +109,22 @@ class Dense(nn.Linear):
         super().__init__(d_in, d_out, bias=bias, dtype=torch.float32)
         self.compute_dtype = dtype
 
+    #: the ``model`` group when this layer's weight holds one column
+    #: shard of the flax kernel (TP, parallel/plan.py); None: whole
+    tp_group = None
+
     def forward(self, x):
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp_group is None:
+            b = None if self.bias is None else self.bias.to(dt)
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        # column-parallel: this rank's output columns, all-gathered into
+        # the replicated activation; the input's gradient sums the shards'
+        from ..parallel import collectives as coll
+        y = F.linear(coll.copy_in(x.to(dt), self.tp_group),
+                     self.weight.to(dt))
+        y = coll.gather(y, -1, self.tp_group)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Embed(nn.Embedding):
@@ -504,10 +516,12 @@ class BiLSTMTagger(nn.Module):
 
 
 class _EncoderBlock(nn.Module):
-    """One pre-norm transformer block: attention + dense FFN."""
+    """One pre-norm transformer block: attention + (dense | MoE) FFN."""
 
     def __init__(self, d_model: int, heads: int, mlp_ratio: int,
-                 dtype: torch.dtype, attention: Callable):
+                 dtype: torch.dtype, attention: Callable,
+                 num_experts: int = 0, expert_top_k: int = 2,
+                 capacity_factor: float = 1.25):
         super().__init__()
         self.heads = heads
         self.attention = attention     # (q, k, v) -> o, from the encoder
@@ -516,16 +530,25 @@ class _EncoderBlock(nn.Module):
         self.qkv = Dense(d_model, 3 * d_model, dtype, bias=False)
         self.proj = Dense(d_model, d_model, dtype, bias=False)
         self.ln2 = LayerNorm(d_model, dtype)
-        self.fc1 = Dense(d_model, hidden, dtype)
-        self.fc2 = Dense(hidden, d_model, dtype)
+        if num_experts > 0:
+            from .moe import MoEMLP
+            self.moe = MoEMLP(num_experts, hidden, top_k=expert_top_k,
+                              capacity_factor=capacity_factor, dtype=dtype,
+                              d_model=d_model)
+        else:
+            self.moe = None
+            self.fc1 = Dense(d_model, hidden, dtype)
+            self.fc2 = Dense(hidden, d_model, dtype)
 
-    def forward(self, x):
+    def forward(self, x, row_mask=None, aux=None):
         B, T, d = x.shape
         H = self.heads
         qkv = self.qkv(self.ln1(x)).view(B, T, 3 * H, d // H)
         q, k, v = qkv.split(H, dim=2)       # head-major thirds, as in flax
         a = self.attention(q, k, v).reshape(B, T, d)
         x = x + self.proj(a)
+        if self.moe is not None:
+            return x + self.moe(self.ln2(x), row_mask=row_mask, aux=aux)
         h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
         return x + h
 
@@ -541,7 +564,16 @@ class TransformerEncoder(nn.Module):
     ``remat``: under grad mode each block runs inside a non-reentrant
     checkpoint, so its activations are recomputed during the backward
     instead of kept (O(T) activation memory per layer instead of O(layers
-    x T), at the price of a second forward of every block).
+    x T), at the price of a second forward of every block). MoE blocks
+    refuse it, as in the JAX package.
+
+    ``num_experts > 0`` swaps each block's FFN for a :class:`~.moe.MoEMLP`
+    (``expert_top_k``, ``capacity_factor``); ``forward`` then takes a
+    ``row_mask`` (B,) of row weights (0: padding, which claims no expert
+    capacity) and a ``moe_aux`` list each block appends its aux loss to.
+    ``attn_fn`` injects an attention callable (q, k, v) -> o in place of
+    ``attn_impl``'s, e.g. a sequence-parallel form
+    (``parallel.sequence.make_sp_attention``).
 
     Input: int token ids (B, T). Output: (B, num_classes) float32 when
     ``pool='mean'``, else per-token (B, T, num_classes).
@@ -553,7 +585,9 @@ class TransformerEncoder(nn.Module):
                  causal: bool = False, pool: str = "mean",
                  dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "auto", block_size: int = 512,
-                 remat: bool = False):
+                 remat: bool = False, num_experts: int = 0,
+                 expert_top_k: int = 2, capacity_factor: float = 1.25,
+                 attn_fn: Optional[Callable] = None):
         super().__init__()
         if d_model % heads != 0:
             raise ValueError(f"d_model ({d_model}) must be divisible "
@@ -571,10 +605,13 @@ class TransformerEncoder(nn.Module):
         self.attn_impl = attn_impl
         self.block_size = block_size
         self.remat = remat
+        self.num_experts = num_experts
+        self.attn_fn = attn_fn
         self.tok_embed = Embed(vocab_size, d_model, dtype)
         self.pos_embed = Embed(max_len, d_model, dtype)
         self.blocks = nn.ModuleList(
-            _EncoderBlock(d_model, heads, mlp_ratio, dtype, self._attention)
+            _EncoderBlock(d_model, heads, mlp_ratio, dtype, self._attention,
+                          num_experts, expert_top_k, capacity_factor)
             for _ in range(layers))
         self.ln_f = LayerNorm(d_model, dtype)
         self.head = Dense(d_model, num_classes, dtype)
@@ -583,6 +620,8 @@ class TransformerEncoder(nn.Module):
         return ["embed"] + [f"block{i}" for i in range(self.layers)] + ["logits"]
 
     def _attention(self, q, k, v):
+        if self.attn_fn is not None:
+            return self.attn_fn(q, k, v)
         impl = self.attn_impl
         if impl == "auto":
             impl = "flash" if q.device.type == "cuda" else "blockwise"
@@ -593,28 +632,39 @@ class TransformerEncoder(nn.Module):
         return blockwise_attention(q, k, v, block_size=self.block_size,
                                    causal=self.causal)
 
-    def forward(self, tokens, output_layer: Optional[str] = None):
-        tap = _LayerTap(output_layer)
+    def embed(self, tokens):
+        """The embedding sum (B, T, d) in the compute dtype."""
         B, T = tokens.shape
         if T > self.max_len:
             raise ValueError(f"sequence length {T} exceeds max_len "
                              f"{self.max_len}")
         pos = torch.arange(T, device=tokens.device)
-        x = tap.tap("embed", self.tok_embed(tokens) + self.pos_embed(pos)[None])
+        return self.tok_embed(tokens) + self.pos_embed(pos)[None]
+
+    def head_out(self, x):
+        """Final norm, pooling and head: (B, T, d) -> float32 logits."""
+        x = self.ln_f(x)
+        if self.pool == "mean":
+            x = x.float().mean(dim=1).to(self.dtype)   # f32 sum, as jnp.mean
+        return self.head(x).float()
+
+    def forward(self, tokens, output_layer: Optional[str] = None,
+                row_mask=None, moe_aux: Optional[list] = None):
+        tap = _LayerTap(output_layer)
+        if self.remat and self.num_experts > 0:
+            raise ValueError("remat with MoE blocks is unsupported (the sown "
+                             "aux loss does not survive rematerialization)")
+        x = tap.tap("embed", self.embed(tokens))
         if tap.done:
             return tap.result.float()
         remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             x = tap.tap(f"block{i}",
                         checkpoint(blk, x, use_reentrant=False) if remat
-                        else blk(x))
+                        else blk(x, row_mask, moe_aux))
             if tap.done:
                 return tap.result.float()
-        x = self.ln_f(x)
-        if self.pool == "mean":
-            x = x.float().mean(dim=1).to(self.dtype)   # f32 sum, as jnp.mean
-        x = tap.tap("logits", self.head(x))
-        return x.float()
+        return tap.tap("logits", self.head_out(x))
 
 
 # ---------------------------------------------------------------- registry
@@ -623,11 +673,7 @@ class TransformerEncoder(nn.Module):
 TOKEN_MODELS = ("bilstm", "transformer")
 
 
-def _build_transformer(cfg: dict) -> TransformerEncoder:
-    if cfg.get("num_experts", 0) > 0:
-        raise NotImplementedError(
-            "MoE transformer blocks (num_experts > 0) wait for their own "
-            "slice with models/moe.py (ROADMAP.md Queue 1 item 12)")
+def _build_transformer(cfg: dict, attn_fn=None) -> TransformerEncoder:
     return TransformerEncoder(
         vocab_size=cfg.get("vocab_size", 10000),
         d_model=cfg.get("d_model", 128),
@@ -641,7 +687,10 @@ def _build_transformer(cfg: dict) -> TransformerEncoder:
         block_size=cfg.get("block_size", 512),
         attn_impl=cfg.get("attn_impl", "auto"),
         remat=cfg.get("remat", False),
-        dtype=resolve_dtype(cfg.get("dtype")))
+        num_experts=cfg.get("num_experts", 0),
+        expert_top_k=cfg.get("expert_top_k", 2),
+        capacity_factor=cfg.get("capacity_factor", 1.25),
+        dtype=resolve_dtype(cfg.get("dtype")), attn_fn=attn_fn)
 
 
 def _dtype(cfg):
@@ -688,14 +737,23 @@ MODEL_BUILDERS: dict[str, Callable[[dict], nn.Module]] = {
 IMAGE_MODELS = ("convnet", "resnet", "resnet50")
 
 
-def build_model(config: dict) -> nn.Module:
+def build_model(config: dict, attn_fn: Optional[Callable] = None
+                ) -> nn.Module:
     """config: {"type": <family>, ...family kwargs...} -> nn.Module (on the
-    current default device; callers move it with ``.to(device)``)."""
+    current default device; callers move it with ``.to(device)``).
+
+    ``attn_fn`` (transformer only): inject an attention callable, e.g. a
+    sequence-parallel form (parallel.sequence.make_sp_attention) — kept
+    out of the config dict so configs stay JSON-serialisable. Only the
+    transformer reads ``num_experts``; a stray one on another family is
+    ignored."""
     cfg = dict(config)
     mtype = cfg.pop("type")
     if mtype not in MODEL_BUILDERS:
         raise KeyError(f"unknown model type {mtype!r}; "
                        f"have {sorted(MODEL_BUILDERS)}")
+    if mtype == "transformer":
+        return MODEL_BUILDERS[mtype](cfg, attn_fn=attn_fn)
     return MODEL_BUILDERS[mtype](cfg)
 
 

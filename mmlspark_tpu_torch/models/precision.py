@@ -94,11 +94,13 @@ def all_finite(grads: dict) -> torch.Tensor:
                        ).all()
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+def clip_by_global_norm(grads: dict, max_norm: float, dist=None) -> dict:
     """Scale ``grads`` so their global L2 norm is at most ``max_norm`` (a
     no-op factor of 1 when already under). Runs AFTER unscaling under
-    bf16_mixed, so the clip threshold is in true gradient units."""
-    sq = sum(torch.sum(torch.square(g)) for g in grads.values())
+    bf16_mixed, so the clip threshold is in true gradient units. With a
+    ``dist`` plan (parallel/plan.py) the norm adds the shards' parts."""
+    sq = (dist.sq_norm(grads) if dist is not None
+          else sum(torch.sum(torch.square(g)) for g in grads.values()))
     norm = torch.sqrt(sq)
     factor = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
     return {k: g * factor for k, g in grads.items()}
@@ -129,20 +131,25 @@ def tree_where(cond: torch.Tensor, new, old):
     return torch.where(cond, new, old)
 
 
-def value_and_grad(fn, params: dict, *args, scale=None):
+def value_and_grad(fn, params: dict, *args, scale=None,
+                   allow_unused: bool = False):
     """(fn(params, *args), its gradient w.r.t. ``params``) for a scalar
     ``fn`` of a dict of tensors; the gradients come back as a dict of the
     same keys. With ``scale`` the backward starts from ``fn * scale`` (the
-    value returned stays unscaled)."""
+    value returned stays unscaled). ``allow_unused``: a parameter the
+    forward never touched (another pipeline stage's) gets zeros."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         out = fn(leaves, *args)
         grads = torch.autograd.grad(out if scale is None else out * scale,
-                                    list(leaves.values()))
+                                    list(leaves.values()),
+                                    allow_unused=allow_unused,
+                                    materialize_grads=allow_unused)
     return out.detach(), dict(zip(leaves, grads))
 
 
-def make_mixed_step_body(compute_loss, tx, grad_clip: float = 0.0):
+def make_mixed_step_body(compute_loss, tx, grad_clip: float = 0.0,
+                         dist=None):
     """The fused bf16_mixed optimizer step:
     scale -> grad -> unscale -> clip -> update.
 
@@ -157,17 +164,27 @@ def make_mixed_step_body(compute_loss, tx, grad_clip: float = 0.0):
     returns the ORIGINAL params/opt_state values (the update is selected
     away elementwise), so a skipped step costs one wasted backward, never a
     corrupted model.
+
+    ``dist`` (a ``parallel.plan.ParallelPlan`` adapter) sums the gradients
+    over the ranks (``sync_grads``) before the unscale, makes the global
+    loss (``loss``) and the shared finiteness flag (``all_finite``), and
+    takes the clip's norm over the shards.
     """
 
     def step_body(params, opt_state, scale_state, xb, yb, wb):
         scale = scale_state.scale
         loss, grads = value_and_grad(compute_loss, params, xb, yb, wb,
                                      scale=scale)
+        if dist is not None:
+            grads = dist.sync_grads(grads)
+            loss = dist.loss(loss)
         inv = 1.0 / scale
         grads = {k: g * inv for k, g in grads.items()}
         finite = all_finite(grads)
+        if dist is not None:
+            finite = dist.all_finite(finite)
         if grad_clip > 0.0:
-            grads = clip_by_global_norm(grads, grad_clip)
+            grads = clip_by_global_norm(grads, grad_clip, dist)
         # the update runs unconditionally; a skipped step selects the OLD
         # values back on the device (no host branch, no sync)
         safe = {k: torch.where(finite, g, torch.zeros_like(g))

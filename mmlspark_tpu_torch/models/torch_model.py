@@ -23,8 +23,17 @@ program of the forward.
 ``capture`` hands a fused pipeline segment (core/capture.py) the same
 module forward for flat float inputs (MLPs), run on the segment's device.
 
-Not ported yet, and raising when asked for: ``tensorParallel > 1`` (the
-``parallel/`` slice) and the multi-host scoring path.
+MoE transformers score with a row mask of the bucket's real rows, so the
+padding claims no expert capacity and the scores do not depend on it.
+
+Under a process group (``parallel.distributed``) each rank's DataFrame is
+its own shard: the ranks agree once on a chunk count and score lockstep
+fixed-shape chunks, a short shard padding with dummy chunks
+(``_transform_multihost``). ``tensorParallel > 1`` serves with the Dense
+kernels column-split over the ``model`` group of a mesh of the world's
+ranks (the ranks of one model group score each other's rows together),
+under ``collective_fit_lock``; with no process group it raises the JAX
+package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -174,8 +183,8 @@ class TorchModel(Transformer):
         "(~3 decimal digits kept)",
         default="float32", choices=("float32", "bfloat16"))
     tensorParallel = IntParam(
-        "model-parallel width for inference; only 1 is ported so far",
-        default=1, min=1)
+        "model-parallel width for inference (needs a process group of a "
+        "multiple of this many ranks)", default=1, min=1)
     device = StringParam(
         "torch device to score on: 'cuda' (default), 'cuda:N' or 'cpu'. "
         "Asking for CUDA where there is none raises; nothing falls back",
@@ -348,7 +357,38 @@ class TorchModel(Transformer):
     def _device(self) -> torch.device:
         return resolve_device(self.getDevice(), "TorchModel")
 
-    def _device_module(self, dev: torch.device, cfg: dict):
+    def _is_moe(self) -> bool:
+        cfg = self.getModelConfig()
+        return (cfg.get("type") == "transformer"
+                and cfg.get("num_experts", 0) > 0)
+
+    def _serving_plan(self, cfg: dict):
+        """The plan of a distributed transform (None on one device): a
+        (data, model) mesh over the world's ranks. Raises the JAX
+        package's errors: tensorParallel inside local-fit mode, a model
+        axis that does not divide the world (one rank: always)."""
+        from ..parallel import mesh as meshlib
+        tp = self.getTensorParallel()
+        if tp > 1 and meshlib.in_local_fit():
+            raise ValueError(
+                "tensorParallel serving is unavailable inside local-fit mode "
+                "(fleet tuner trials run single-device)")
+        if tp == 1 and not meshlib.distributed_active():
+            return None
+        if meshlib.effective_process_count() > 1:
+            meshlib.require_inner_block_local({"tensorParallel": tp})
+        mesh = meshlib.create_mesh(model=tp)
+        key = (id(mesh), json.dumps(cfg, sort_keys=True, default=str))
+        if getattr(self, "_plan_key", None) != key:
+            from ..parallel.plan import ParallelPlan
+            from .modules import build_model
+            with torch.device("meta"):
+                shapes = build_model(cfg).state_dict()
+            self._plan_cache = ParallelPlan(mesh, cfg, shapes, tp=tp)
+            self._plan_key = key
+        return self._plan_cache
+
+    def _device_module(self, dev: torch.device, cfg: dict, plan=None):
         """The module of ``cfg`` (the config sized for the input) with its
         weights on ``dev``, uploaded ONCE per (params, config, device): the
         serving loop calls transform per request batch, and re-shipping
@@ -357,7 +397,8 @@ class TorchModel(Transformer):
         can never alias a freed one; updating weights means setModelParams
         (a new object). A new module drops the graphs of the old one."""
         host = self.getModelParams()
-        key = (json.dumps(cfg, sort_keys=True, default=str), str(dev))
+        key = (json.dumps(cfg, sort_keys=True, default=str), str(dev),
+               id(plan))
         if (getattr(self, "_dev_params_src", None) is not host
                 or getattr(self, "_dev_module_key", None) != key):
             from .modules import build_model
@@ -366,6 +407,8 @@ class TorchModel(Transformer):
             with torch.device(dev):
                 module = build_model(cfg)
             module.load_state_dict(sd, strict=True)
+            if plan is not None:
+                plan.shard_module(module)
             self._drop_graphs()
             self._dev_module = module.eval().requires_grad_(False)
             self._dev_params_src = host
@@ -418,10 +461,6 @@ class TorchModel(Transformer):
         if self.getModelParams() is None:
             raise ValueError("TorchModel has no params; set modelParams or "
                              "call setModelLocation")
-        if self.getTensorParallel() > 1:
-            raise NotImplementedError(
-                "tensorParallel > 1 waits for the port's parallel/ slice "
-                "(ROADMAP.md Queue 1 item 12)")
         dev = self._device()
         cfg = self.getModelConfig()
         from .modules import TOKEN_MODELS, resolve_dtype, sized_for
@@ -436,11 +475,28 @@ class TorchModel(Transformer):
         else:
             x = _prep_input(df, self.getInputCol(),
                             tuple(self.getInputShape()))
+        plan = self._serving_plan(sized_for(cfg, x.shape))
+        ol = self.getOutputLayer() or None
+        if plan is not None:
+            if plan.device.type != dev.type:
+                raise ValueError(
+                    f"the process group's ranks run on {plan.device.type} "
+                    f"but this model asks for device={self.getDevice()!r}")
+            from ..parallel import mesh as meshlib
+            # a collective program: never interleaved with another
+            # thread's collective fit
+            with meshlib.collective_fit_lock, torch.inference_mode(), \
+                    full_precision_matmuls(
+                        resolve_dtype(cfg.get("dtype")) == torch.float32):
+                y = self._transform_multihost(x, cfg, plan, ol)
+            if y.ndim == 1:
+                return df.withColumn(self.getOutputCol(), y)
+            return df.withColumn(self.getOutputCol(), object_column(y))
         # an empty column has no shape to size the module by: nothing runs
         module = (self._device_module(dev, sized_for(cfg, x.shape))
                   if len(x) else None)
-        ol = self.getOutputLayer() or None
         bs = self.getMiniBatchSize()
+        moe = self._is_moe()
 
         def chunks():
             for lo in range(0, len(x), bs):
@@ -463,18 +519,66 @@ class TorchModel(Transformer):
             graphs = (self._graph_fn(module, ol) if dev.type == "cuda"
                       else None)
 
-            def run(xb):
+            def run(xb, n_real):
+                # MoE: the bucket's padding rows claim no expert capacity
+                args = ((xb, _row_mask(len(xb), n_real, xb.device))
+                        if moe else (xb,))
                 if graphs is not None and capture:
-                    graphs.aot_compile(xb)
-                if graphs is not None and graphs.is_cached(xb):
-                    return graphs(xb)
-                return eager(xb)
+                    graphs.aot_compile(*args)
+                if graphs is not None and graphs.is_cached(*args):
+                    return graphs(*args)
+                return eager(*args)
 
             with torch.inference_mode(), full_precision_matmuls(f32):
                 y = self._dispatch_windowed(chunks(), run, dev)
         if y.ndim == 1:
             return df.withColumn(self.getOutputCol(), y)
         return df.withColumn(self.getOutputCol(), object_column(y))
+
+    def _transform_multihost(self, x, cfg: dict, plan, ol) -> np.ndarray:
+        """Lockstep chunked scoring over every rank's local shard. The
+        ranks agree ONCE (an object gather) on the chunk count — the
+        largest shard's at miniBatchSize rows a chunk, never more rows
+        than that shard — and every rank makes that many identical-shape
+        calls, a short (or empty) shard scoring zero-filled dummy chunks.
+        A call gathers the model group's rows, runs the forward with its
+        collectives (TP, MoE's global capacity), and keeps this rank's
+        rows."""
+        from ..parallel.dataplane import allgather_pyobj
+        n = len(x)
+        meta = allgather_pyobj((n, tuple(x.shape[1:]), x.dtype.str)
+                               if n else (0, None, None))
+        max_n = max(m[0] for m in meta)
+        if max_n == 0:
+            return np.empty((0,))
+        bs = max(min(self.getMiniBatchSize(), max_n), 1)
+        n_chunks = -(-max_n // bs)
+        if n == 0:
+            _, tail, dt = next(m for m in meta if m[0])
+            x = np.zeros((0,) + tuple(tail), np.dtype(dt))
+        dev = plan.device
+        from .modules import sized_for
+        module = self._device_module(dev, sized_for(cfg, x.shape), plan)
+        eager = _WireForward(module, ol, self.getTransferDtype())
+        moe = self._is_moe()
+
+        def chunks():
+            for k in range(n_chunks):
+                chunk = x[k * bs:(k + 1) * bs]
+                n_real = len(chunk)    # 0 for a drained shard's dummy chunk
+                if n_real < bs:
+                    filler = np.zeros((bs - n_real,) + x.shape[1:], x.dtype)
+                    chunk = (np.concatenate([chunk, filler])
+                             if n_real else filler)
+                yield np.ascontiguousarray(chunk), n_real
+
+        def run(xb, n_real):
+            wb = _row_mask(len(xb), n_real, xb.device)
+            xs, ws = plan.rows(xb, wb)
+            y = eager(xs, ws) if moe else eager(xs)
+            return plan.own_rows(y, len(xb))
+
+        return self._dispatch_windowed(chunks(), run, dev)
 
     def _dispatch_windowed(self, chunks, run, dev: torch.device,
                            window: int = 2) -> np.ndarray:
@@ -490,7 +594,8 @@ class TorchModel(Transformer):
         outs: list = []
         if dev.type != "cuda":
             for chunk, n_real in chunks:
-                outs.append(run(torch.from_numpy(chunk))[:n_real].numpy())
+                outs.append(run(torch.from_numpy(chunk), n_real)[:n_real]
+                            .numpy())
             return (np.concatenate(outs, axis=0) if outs
                     else np.empty((0,)))
         compute = torch.cuda.current_stream(dev)
@@ -510,7 +615,7 @@ class TorchModel(Transformer):
                 xb = staged.to(dev, non_blocking=True)
             compute.wait_stream(copy)
             xb.record_stream(compute)
-            y = run(xb)
+            y = run(xb, n_real)
             host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
             host.copy_(y, non_blocking=True)
             done = torch.cuda.Event()
@@ -535,9 +640,18 @@ class _WireForward(torch.nn.Module):
         self.output_layer = output_layer
         self.bf16_wire = transfer_dtype == "bfloat16"
 
-    def forward(self, xb):
+    def forward(self, xb, row_mask=None):
         if xb.dtype == torch.int32:
             xb = xb.long()
         elif xb.dtype == torch.float32 and self.bf16_wire:
             xb = xb.to(torch.bfloat16)
+        if row_mask is not None:       # a MoE transformer's real rows
+            return self.module(xb, output_layer=self.output_layer,
+                               row_mask=row_mask).float()
         return self.module(xb, output_layer=self.output_layer).float()
+
+
+def _row_mask(rows: int, n_real: int, dev) -> torch.Tensor:
+    """(rows,) float32 weights: 1 for the first ``n_real`` rows, 0 for the
+    padding."""
+    return (torch.arange(rows, device=dev) < n_real).to(torch.float32)

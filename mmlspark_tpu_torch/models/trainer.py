@@ -67,13 +67,26 @@ fused step counts on ``mmlspark_fit_fused_dispatches_total``. Its
 checkpoints record the plan's ``featurize_digest`` in the manifest, and a
 resume skips a checkpoint written under another plan.
 
-Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item when set away from their defaults: tensor/sequence/expert/pipeline
-parallelism (item 12) and elastic training (item 13b).
+Distributed fits (``parallel/``): under a process group
+(``parallel.distributed.initialize``) each rank passes its own shard of
+the rows and ``batchSize`` is the global batch, as in the JAX package's
+multi-process fit; the ranks take the feed path in lockstep, and
+``tensorParallel``, ``sequenceParallel`` (``spMode`` ring|ulysses),
+``expertParallel`` (MoE) and ``pipelineParallel`` split the model over a
+mesh of the world's ranks with the JAX package's checks and errors
+(``_parallel_setup``; one rank with any of them at 2 raises its
+``ValueError``). ``parallel/plan.py`` holds the collectives; the
+fitted model's params are the whole tree on every rank. With no process
+group a fit is the one-device fit. MoE transformers (``num_experts > 0``)
+train with their row mask and ``moeAuxWeight``.
+
+Not ported yet, and raising NotImplementedError naming its ROADMAP.md
+item: elastic training (item 13b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import os
@@ -96,6 +109,7 @@ from ..resilience.policy import RetryPolicy
 from . import precision as prec
 from .modules import (TOKEN_MODELS, Conv2d, Dense, Embed, FrozenAffine,
                       GroupNorm, LayerNorm, build_model, sized_for)
+from .moe import MoEMLP, read_moe_aux_loss
 from .torch_model import (TorchModel, _next_pow2, _prep_input,
                           _token_matrix, full_precision_matmuls)
 from .weights import from_flax_params, to_flax_params
@@ -272,41 +286,89 @@ def _bind(module, params: dict):
         module.get_submodule(owner)._parameters[attr] = t
 
 
-def _make_loss_compute(module, loss_fn):
+def _make_loss_compute(module, loss_fn, is_moe: bool = False,
+                       moe_aux: float = 0.0, plan=None, forward=None):
     """The weighted scalar loss of one batch: the one forward every
     precision mode and path shares. The model casts itself to its compute
     dtype; the loss reduction stays f32, and rows of weight 0 carry no
-    gradient."""
+    gradient. MoE routing sees the row weights too (padding claims no
+    expert capacity), and ``moe_aux > 0`` adds the blocks' aux losses.
+
+    With a ``plan`` (a distributed fit) the denominator is the GLOBAL
+    weight sum, so summing the ranks' gradients gives the global mean's;
+    each call leaves its ``(main, aux)`` parts in ``compute.last`` for the
+    global loss. ``forward(params, xb)`` replaces the module's forward
+    (the pipeline)."""
 
     def compute(params, xb, yb, wb):
         _bind(module, params)
-        losses = loss_fn(module(xb), yb)
-        return torch.sum(losses * wb) / torch.clamp_min(torch.sum(wb), 1.0)
+        aux = [] if moe_aux > 0.0 else None
+        if forward is not None:
+            preds = forward(params, xb)
+        elif is_moe:
+            preds = module(xb, row_mask=wb, moe_aux=aux)
+        else:
+            preds = module(xb)
+        losses = loss_fn(preds, yb)
+        denom = torch.sum(wb) if plan is None else plan.denominator(wb)
+        main = torch.sum(losses * wb) / torch.clamp_min(denom, 1.0)
+        a = None if not aux else moe_aux * read_moe_aux_loss(aux)
+        compute.last = (main, a)
+        return main if a is None else main + a
 
     return compute
 
 
-def _make_step_body(module, tx, loss_fn, grad_clip: float = 0.0):
-    """One optimizer step: loss -> grads -> (clip) -> update, returning
-    ``(params, opt_state, loss)``."""
-    compute = _make_loss_compute(module, loss_fn)
+class _StepDist:
+    """The step bodies' view of a distributed fit's plan: gradient sums,
+    the global loss from the last forward's parts, the shared finiteness
+    flag and the sharded norm."""
+
+    def __init__(self, plan, compute):
+        self.plan, self.compute = plan, compute
+        self.sync_grads = plan.sync_grads
+        self.all_finite = plan.all_finite
+        self.sq_norm = plan.sq_norm
+
+    def loss(self, _local):
+        return self.plan.reduce_loss(*self.compute.last)
+
+
+def _make_step_body(module, tx, loss_fn, grad_clip: float = 0.0,
+                    is_moe: bool = False, moe_aux: float = 0.0, plan=None,
+                    forward=None):
+    """One optimizer step: loss -> grads -> (sum over the ranks) -> (clip)
+    -> update, returning ``(params, opt_state, loss)``."""
+    compute = _make_loss_compute(module, loss_fn, is_moe, moe_aux, plan,
+                                 forward)
+    dist = None if plan is None else _StepDist(plan, compute)
+    pipelined = forward is not None
 
     def step_body(params, opt_state, xb, yb, wb):
-        loss, grads = prec.value_and_grad(compute, params, xb, yb, wb)
-        if grad_clip > 0.0:
-            grads = prec.clip_by_global_norm(grads, grad_clip)
+        loss, grads = prec.value_and_grad(compute, params, xb, yb, wb,
+                                          allow_unused=pipelined)
+        if dist is not None:
+            grads = dist.sync_grads(grads)
+            loss = dist.loss(loss)
+        # the pipeline step clips nothing, as the JAX package's pp body
+        if grad_clip > 0.0 and not pipelined:
+            grads = prec.clip_by_global_norm(grads, grad_clip, dist)
         updates, opt2 = tx.update(grads, opt_state, params)
         return prec.apply_updates(params, updates), opt2, loss
 
     return step_body
 
 
-def _make_mixed_step_body(module, tx, loss_fn, grad_clip: float = 0.0):
+def _make_mixed_step_body(module, tx, loss_fn, grad_clip: float = 0.0,
+                          is_moe: bool = False, moe_aux: float = 0.0,
+                          plan=None):
     """bf16_mixed twin of _make_step_body, threading a ScaleState:
     ``(params, opt_state, scale_state, xb, yb, wb) ->
     (params, opt_state, scale_state, loss)``."""
-    return prec.make_mixed_step_body(_make_loss_compute(module, loss_fn), tx,
-                                     grad_clip)
+    compute = _make_loss_compute(module, loss_fn, is_moe, moe_aux, plan)
+    return prec.make_mixed_step_body(
+        compute, tx, grad_clip,
+        None if plan is None else _StepDist(plan, compute))
 
 
 # ----------------------------------------------------------------- init
@@ -359,6 +421,16 @@ def init_params(cfg: dict, seed: int) -> dict:
             d = mod.weight.shape[0]
             sd[pre + "weight"] = torch.ones(d)
             sd[pre + "bias"] = torch.zeros(d)
+        elif isinstance(mod, MoEMLP):
+            # flax's lecun_normal over a stacked (E, in, out) param counts
+            # the leading axis in the fan-in (receptive field E)
+            d, E = mod.gate.shape
+            h = mod.expert_w1.shape[2]
+            sd[pre + "gate"] = _lecun_normal((d, E), d, gen)
+            sd[pre + "expert_w1"] = _lecun_normal((E, d, h), d * E, gen)
+            sd[pre + "expert_b1"] = torch.zeros(E, h)
+            sd[pre + "expert_w2"] = _lecun_normal((E, h, d), h * E, gen)
+            sd[pre + "expert_b2"] = torch.zeros(E, d)
         elif isinstance(mod, torch.nn.LSTM):
             for name, p in mod.named_parameters():
                 four_h = p.shape[0]
@@ -413,11 +485,6 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
 # ----------------------------------------------------------- stream batches
 
 def _stream_batch(b, cfg: dict, loss_name: str):
@@ -453,6 +520,11 @@ def _stream_batch(b, cfg: dict, loss_name: str):
             raise ValueError(f"token ids must lie in [0, {vocab}); got "
                              f"[{lo}, {hi}]")
     return x, y
+
+
+def _np_dtype(name: str):
+    """A numpy dtype from its str() (an agreed batch signature)."""
+    return np.dtype(name.replace("torch.", ""))
 
 
 def _pad_rows(a, rows: int):
@@ -588,11 +660,13 @@ class _Snapshot:
 
 
 class TorchLearner(Estimator):
-    """Neural-net training on one device (the port of ``TpuLearner``).
+    """Neural-net training (the port of ``TpuLearner``) on one device, or on
+    every rank of a process group.
 
-    Params mirror the JAX package's; ``device`` is the port's own. The
-    parallelism and elastic Params are kept so a saved stage round-trips,
-    and raise at fit time away from their defaults."""
+    Params mirror the JAX package's; ``device`` is the port's own (under a
+    process group: the kind of the ranks' devices). The elastic Params are
+    kept so a saved stage round-trips, and raise at fit time away from
+    their defaults."""
 
     featuresCol = StringParam("features column (token ids for the "
                               "transformer)", default="features")
@@ -637,16 +711,17 @@ class TorchLearner(Estimator):
         "(0/1 = one msgpack), committed with a head file and the manifest "
         "last; a torn shard disqualifies the whole checkpoint and resume "
         "falls back to the previous one", default=0, min=0)
-    tensorParallel = IntParam("size of the model (TP) mesh axis; only 1 is "
-                              "ported", default=1, min=1)
-    sequenceParallel = IntParam("size of the sequence (SP) mesh axis; only "
-                                "1 is ported", default=1, min=1)
+    tensorParallel = IntParam("size of the model (TP) mesh axis", default=1,
+                              min=1)
+    sequenceParallel = IntParam("size of the sequence (SP) mesh axis "
+                                "(transformer only)", default=1, min=1)
     spMode = StringParam("sequence-parallel collective form", default="ring",
                          choices=("ring", "ulysses"))
-    expertParallel = IntParam("size of the expert (EP) mesh axis; only 1 "
-                              "is ported", default=1, min=1)
-    pipelineParallel = IntParam("size of the pipeline (PP) mesh axis; only "
-                                "1 is ported", default=1, min=1)
+    expertParallel = IntParam("size of the expert (EP) mesh axis (MoE "
+                              "transformer only)", default=1, min=1)
+    pipelineParallel = IntParam(
+        "size of the pipeline (PP) mesh axis: the transformer's blocks "
+        "split into this many GPipe stages", default=1, min=1)
     moeAuxWeight = FloatParam("weight of the MoE load-balancing aux loss",
                               default=0.01, min=0.0)
     precision = StringParam(
@@ -719,14 +794,107 @@ class TorchLearner(Estimator):
 
     # ---- set-up ----
     def _refuse_unported(self):
-        for p in ("tensorParallel", "sequenceParallel", "expertParallel",
-                  "pipelineParallel"):
-            if self.getOrDefault(p) > 1:
-                raise _not_ported(f"{p} > 1 (the port's parallel/ slice)", 12)
         if self.getElastic():
+            if (self.getSequenceParallel() > 1
+                    or self.getExpertParallel() > 1
+                    or self.getPipelineParallel() > 1):
+                raise ValueError(
+                    "elastic fit composes with data(+tensor) parallelism "
+                    "only (a seq/expert/pipe axis cannot shrink mid-run); "
+                    "run sp/ep/pp fits without elastic")
             raise NotImplementedError(
                 "elastic training is not ported yet (ROADMAP.md Queue 1 "
                 "item 13b)")
+
+    def _parallel_setup(self, cfg: dict, seq_len: Optional[int],
+                        dev: torch.device):
+        """The JAX package's parallelism checks, in its order and with its
+        errors, with the world size in the device count's place; then the
+        mesh. Returns ``(mesh, attn_fn)``, or None with no process group
+        (the one-device path). The ranks' device must be the fit's kind: a
+        CUDA fit never runs through a gloo group."""
+        from ..parallel import mesh as meshlib
+        from ..parallel import sequence
+        tp = self.getTensorParallel()
+        sp = self.getSequenceParallel()
+        ep = self.getExpertParallel()
+        pp = self.getPipelineParallel()
+        if self.getPrecision() == "bf16_mixed" and pp > 1:
+            raise ValueError(
+                "precision='bf16_mixed' composes with data/tensor/seq/"
+                "expert parallelism; the pipeline step body does not "
+                "thread the loss-scale state — run pipelineParallel fits "
+                "with precision='bf16' or 'f32'")
+        if sp > 1 and ep > 1:
+            raise ValueError("sequenceParallel and expertParallel cannot both "
+                             "exceed 1 (compose dp x sp or dp x ep meshes)")
+        if pp > 1 and (sp > 1 or ep > 1 or tp > 1):
+            raise ValueError("pipelineParallel currently composes with data "
+                             "parallelism only (dp x pp mesh); run tp/sp/ep "
+                             "without pp")
+        n_dev = meshlib.effective_process_count()
+        attn_fn = None
+        if sp > 1:
+            if cfg.get("type") != "transformer":
+                raise ValueError("sequenceParallel>1 requires a transformer "
+                                 f"model, got {cfg.get('type')!r}")
+            if n_dev % (sp * tp) != 0 or sp * tp > n_dev:
+                raise ValueError(
+                    f"sequenceParallel*tensorParallel = {sp}*{tp} must divide "
+                    f"the device count ({n_dev})")
+            if seq_len % sp != 0:
+                raise ValueError(
+                    f"sequence length {seq_len} must be divisible by "
+                    f"sequenceParallel ({sp})")
+            mesh = meshlib.make_mesh({"data": n_dev // (sp * tp),
+                                      "seq": sp, "model": tp})
+            attn_fn = sequence.make_sp_attention(
+                mesh, axis_name="seq", mode=self.getSpMode(),
+                causal=cfg.get("causal", False))
+        elif ep > 1:
+            if cfg.get("type") != "transformer" or not cfg.get("num_experts"):
+                raise ValueError("expertParallel>1 requires a transformer "
+                                 "model with num_experts set")
+            if cfg["num_experts"] % ep != 0:
+                raise ValueError(f"num_experts ({cfg['num_experts']}) must be "
+                                 f"divisible by expertParallel ({ep})")
+            if n_dev % (ep * tp) != 0 or ep * tp > n_dev:
+                raise ValueError(
+                    f"expertParallel*tensorParallel = {ep}*{tp} must divide "
+                    f"the device count ({n_dev})")
+            mesh = meshlib.make_mesh({"data": n_dev // (ep * tp),
+                                      "expert": ep, "model": tp})
+        elif pp > 1:
+            if cfg.get("type") != "transformer":
+                raise ValueError("pipelineParallel>1 requires a transformer "
+                                 f"model, got {cfg.get('type')!r}")
+            if cfg.get("num_experts", 0) > 0:
+                raise ValueError("pipelineParallel with MoE blocks is not "
+                                 "supported (expert routing state does not "
+                                 "pipeline); use expertParallel instead")
+            if cfg.get("layers", 2) % pp != 0:
+                raise ValueError(f"layers ({cfg.get('layers', 2)}) must be "
+                                 f"divisible by pipelineParallel ({pp})")
+            if n_dev % pp != 0:
+                raise ValueError(f"pipelineParallel ({pp}) must divide the "
+                                 f"device count ({n_dev})")
+            if n_dev > 1:
+                meshlib.require_inner_block_local({"pipelineParallel": pp})
+            mesh = meshlib.make_mesh({"data": n_dev // pp, "pipe": pp})
+        else:
+            mesh = meshlib.create_mesh(model=tp)
+        if n_dev > 1:
+            meshlib.require_inner_block_local({"sequenceParallel": sp,
+                                               "expertParallel": ep,
+                                               "tensorParallel": tp})
+        if not mesh.distributed:
+            return None
+        if mesh.device.type != dev.type:
+            raise ValueError(
+                f"the process group's ranks run on {mesh.device.type} but "
+                f"this fit asks for device={self.getDevice()!r}: a "
+                f"distributed fit runs on the group's devices")
+        return mesh, attn_fn
 
     # ---- checkpointing ----
     # Two granularities, as in the JAX package: ``ckpt_EEEEE.msgpack``
@@ -848,6 +1016,16 @@ class TorchLearner(Estimator):
                          step: Optional[int] = None):
         from ..resilience import ckpt as ckptlib
         from .downloader import write_flax_msgpack
+        plan = getattr(self, "_plan", None)
+        if plan is not None:
+            # a distributed fit's checkpoint is the whole tree: every rank
+            # joins the gather of the shards, rank 0 writes every file
+            # (the JAX package's non-elastic multi-process rule, with the
+            # shard files written by rank 0 too)
+            state = (plan.gather(state[0]), plan.gather(state[1]), state[2])
+            from ..parallel import mesh as meshlib
+            if meshlib.process_index() != 0:
+                return
         os.makedirs(self.getCheckpointDir(), exist_ok=True)
         snap = _Snapshot(state, self._ckpt_stream(dev))
         path = self._ckpt_path(epoch, step)
@@ -919,10 +1097,27 @@ class TorchLearner(Estimator):
 
     def _resume_training_state(self, state: tuple, dev):
         """Restore ``(params, opt_state, scale_state)`` from the newest
-        checkpoint that verifies and decodes, falling back candidate by
-        candidate. Returns ``(state, start_epoch, start_step)``: a fresh
-        start is ``(state, 0, 0)``. One process: the position needs no
-        consensus."""
+        checkpoint that verifies and decodes (:meth:`_resume_local`). A
+        multi-rank fit's ranks each read the shared directory and must
+        agree on the position, or the fit raises."""
+        out = self._resume_local(state, dev)
+        from ..parallel import mesh as meshlib
+        if (getattr(self, "_plan", None) is not None
+                and self.getCheckpointDir()
+                and meshlib.effective_process_count() > 1):
+            from ..parallel.dataplane import allgather_pyobj
+            seen = allgather_pyobj(tuple(out[1:]))
+            if len(set(seen)) != 1:
+                raise RuntimeError(
+                    f"the ranks resume from different checkpoint positions "
+                    f"{seen}: is {self.getCheckpointDir()!r} on storage "
+                    f"every rank shares?")
+        return out
+
+    def _resume_local(self, state: tuple, dev):
+        """Restore from the newest checkpoint that verifies and decodes,
+        falling back candidate by candidate. Returns ``(state,
+        start_epoch, start_step)``: a fresh start is ``(state, 0, 0)``."""
         from ..resilience import ckpt as ckptlib
         d = self.getCheckpointDir()
         self._ckpt_floor = None
@@ -953,6 +1148,9 @@ class TorchLearner(Estimator):
                 new_opt = _opt_from_state_dict(
                     st["opt"], self.getOptimizer(), self.getWeightDecay(),
                     cfg, dev)
+                if getattr(self, "_plan", None) is not None:
+                    new_params = self._plan.shard(new_params)
+                    new_opt = self._plan.shard(new_opt)
             except (ckptlib.CorruptCheckpoint, OSError, KeyError) as e:
                 log.warning("restore of checkpoint %s failed (%s); trying "
                             "the previous checkpoint", _fmt_pos(pos), e)
@@ -1065,31 +1263,68 @@ class TorchLearner(Estimator):
         with self._slo_session():
             return self._fit(df)
 
-    def _training_setup(self, cfg: dict, x_shape, dev):
+    def _training_setup(self, cfg: dict, x_shape, dev, par=None):
         """``(step, state)`` of a fit whose batches have ``x_shape``: the
         step body of the precision mode, and the fresh ``(params,
         opt_state, scale_state)`` on ``dev``. The sizes flax infers from
         the first batch come from the data (``self._ckpt_cfg``, which the
         checkpoint layout reads too); the step reads the weights it is
         handed, and the module itself holds none (meta), so it costs no
-        memory and no init."""
+        memory and no init.
+
+        ``par`` (``_parallel_setup``'s mesh and attention) makes the fit
+        distributed: ``self._plan`` splits the params and optimizer state
+        (TP columns, EP experts), the module's layers get their groups, the
+        step first gathers the inner block's rows into the data slice, and
+        a pipeline fit runs ``transformer_pp_forward``."""
         sized = self._ckpt_cfg = sized_for(cfg, x_shape)
+        mesh, attn_fn = par if par is not None else (None, None)
         with torch.device("meta"):
-            module = build_model(sized)
+            module = build_model(sized, attn_fn=attn_fn)
         mixed, grad_clip, scale_state = self._precision_setup(dev)
+        full = init_params(sized, self.getSeed())
+        plan = forward = None
+        if mesh is not None:
+            from ..parallel.plan import ParallelPlan
+            pp = self.getPipelineParallel()
+            plan = ParallelPlan(mesh, sized, full, tp=self.getTensorParallel(),
+                                ep=self.getExpertParallel(), pp=pp)
+            plan.configure(module)
+            full = plan.shard(full)
+            if pp > 1:
+                from ..parallel.pipeline_parallel import \
+                    transformer_pp_forward
+
+                def forward(p, xb):
+                    return transformer_pp_forward(sized, p, xb, mesh,
+                                                  n_microbatches=pp,
+                                                  module=module)
+        self._plan = plan
         params = {k: v.to(device=dev, dtype=torch.float32)
-                  for k, v in init_params(sized, self.getSeed()).items()}
+                  for k, v in full.items()}
         tx = make_optimizer(self.getOptimizer(), self.getLearningRate(),
                             self.getMomentum(), self.getWeightDecay())
         loss_fn = make_loss(self.getLoss(), per_example=True)
+        # only the transformer family reads num_experts; other configs
+        # carrying the key get no row_mask
+        is_moe = (sized.get("type") == "transformer"
+                  and sized.get("num_experts", 0) > 0)
+        moe_aux = self.getMoeAuxWeight() if is_moe else 0.0
         if mixed:
-            step = _make_mixed_step_body(module, tx, loss_fn, grad_clip)
+            body = _make_mixed_step_body(module, tx, loss_fn, grad_clip,
+                                         is_moe, moe_aux, plan)
         else:
-            plain = _make_step_body(module, tx, loss_fn, grad_clip)
+            plain = _make_step_body(module, tx, loss_fn, grad_clip, is_moe,
+                                    moe_aux, plan, forward)
 
-            def step(p, o, ss, xb, yb, wb):
+            def body(p, o, ss, xb, yb, wb):
                 p, o, loss = plain(p, o, xb, yb, wb)
                 return p, o, None, loss
+        if plan is None or plan.inner_group is None:
+            step = body
+        else:
+            def step(p, o, ss, xb, yb, wb):
+                return body(p, o, ss, *plan.rows(xb, yb, wb))
         return step, (params, tx.init(params), scale_state)
 
     def _fit(self, df: DataFrame) -> TorchModel:
@@ -1119,21 +1354,42 @@ class TorchLearner(Estimator):
             x_shape = (n,) + self._featurized_shape(plan, raws)
         if n == 0:
             raise ValueError("fit on an empty DataFrame")
-        step, state = self._training_setup(cfg, x_shape, dev)
+        par = self._parallel_setup(
+            cfg, x_shape[1] if len(x_shape) > 1 else None, dev)
+        # multi-rank: this rank's df is its LOCAL shard and batchSize the
+        # GLOBAL batch; every rank contributes exactly bs rows a step (a
+        # short shard wraps its rows), and the step count derives from the
+        # global row count, so every rank runs the same steps
+        from ..parallel import mesh as meshlib
+        world = meshlib.effective_process_count() if par else 1
+        if par is not None:
+            dev = par[0].device
+        n_global = n
+        if world > 1:
+            from ..parallel.dataplane import allgather_pyobj
+            n_global = int(sum(allgather_pyobj(int(n))))
+        step, state = self._training_setup(cfg, x_shape, dev, par)
         state, start_epoch, start_step = self._resume_training_state(state,
                                                                      dev)
-        bs = max(1, min(self.getBatchSize(), n))
-        steps = max(1, n // bs)
+        bs_global = max(1, min(self.getBatchSize(), n_global))
+        bs = max(1, bs_global // world)
+        steps = max(1, n_global // (bs * world))
         data_cap = self.getDeviceDataCap() or _device_data_cap(dev)
-        rng_np = np.random.default_rng(self.getSeed())
-        scan = sum(a.nbytes for a in data) <= data_cap
+        # ranks feeding distinct data slices draw distinct orders
+        rng_np = np.random.default_rng(self.getSeed()
+                                       + meshlib.process_index())
+        scan = world == 1 and sum(a.nbytes for a in data) <= data_cap
         run = self._run_epochs_scan if scan else self._run_epochs
         profile = self.getProfile()
         if profile:
             telemetry.profiler.enable()
         path = "scan" if scan else "feed"
+        # concurrent fits on a thread pool must not interleave collectives
+        guard = (meshlib.collective_fit_lock if par is not None
+                 else contextlib.nullcontext())
         try:
-            with full_precision_matmuls(self.getPrecision() == "f32"), \
+            with guard, full_precision_matmuls(
+                    self.getPrecision() == "f32"), \
                     telemetry.trace.span("fit", model=cfg.get("type"),
                                          rows=n, path=path,
                                          fused=plan is not None):
@@ -1156,6 +1412,9 @@ class TorchLearner(Estimator):
         return self._package_model(cfg, state[0], stats)
 
     def _package_model(self, cfg, params, stats) -> TorchModel:
+        if getattr(self, "_plan", None) is not None:
+            # the whole flax-layout tree on every rank, from the shards
+            params = self._plan.gather(params)
         model = (TorchModel()
                  .setInputCol(self.getFeaturesCol())
                  .setModelConfig(cfg)
@@ -1195,16 +1454,46 @@ class TorchLearner(Estimator):
         # on the device ahead of each step
         plan = getattr(self, "_featurize_plan", None)
         feat = self._featurize_fn(plan, dev) if plan is not None else None
+        if (self.getSequenceParallel() > 1 or self.getExpertParallel() > 1
+                or self.getPipelineParallel() > 1):
+            raise ValueError(
+                "fitStream is data(+tensor)-parallel; use fit() for "
+                "sequence/expert/pipeline parallelism")
+        par = self._parallel_setup(cfg, None, dev)
+        if par is not None:
+            dev = par[0].device
+        from ..parallel import mesh as meshlib
+        world = meshlib.effective_process_count() if par else 1
         first_iter = iter(batches_fn())
         first = next(first_iter, None)
-        if first is None:
+        x0 = y0 = None
+        if first is not None and plan is None:
+            x0, y0 = _stream_batch(first, cfg, self.getLoss())
+        if world > 1:
+            # a rank whose stream is EMPTY from the start must still join
+            # every collective: the ranks agree the batch signature so it
+            # sizes the same model and feeds zero-weight dummies while the
+            # others drain
+            from ..parallel.dataplane import allgather_pyobj
+            sig = (None if x0 is None else
+                   (tuple(x0.shape[1:]), str(x0.dtype), str(y0.dtype)))
+            sigs = [g for g in allgather_pyobj(sig) if g is not None]
+            if not sigs:
+                raise ValueError("batches_fn() yielded no batches on any "
+                                 "process")
+            if x0 is None:
+                xsh, xdt, ydt = sigs[0]
+                x0 = np.zeros((0,) + tuple(xsh), _np_dtype(xdt))
+                y0 = np.zeros((0,), _np_dtype(ydt))
+        elif first is None:
             raise ValueError("batches_fn() yielded no batches")
         if plan is None:
-            x_shape = tuple(_stream_batch(first, cfg, self.getLoss())[0].shape)
+            x_shape = tuple(x0.shape)
         else:
             raw0 = self._stream_raw_batch(first, plan)
             x_shape = (len(raw0[0]),) + self._featurized_shape(plan, raw0)
-        step, state = self._training_setup(cfg, x_shape, dev)
+        self._stream_x0 = (x0[:0], y0[:0]) if x0 is not None else None
+        step, state = self._training_setup(cfg, x_shape, dev, par)
         state, start_epoch, start_step = self._resume_training_state(state,
                                                                      dev)
         if start_step:
@@ -1220,12 +1509,16 @@ class TorchLearner(Estimator):
                       if self.getCheckpointDir() else 0)
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "stream_batches": [], "path": "stream"}
+        guard = (meshlib.collective_fit_lock if par is not None
+                 else contextlib.nullcontext())
         try:
-            with full_precision_matmuls(self.getPrecision() == "f32"), \
+            with guard, full_precision_matmuls(
+                    self.getPrecision() == "f32"), \
                     telemetry.trace.span("fit", model=cfg.get("type"),
                                          path="stream"):
                 for epoch in range(start_epoch, self.getEpochs()):
-                    stream = (itertools.chain([first], first_iter)
+                    stream = ((itertools.chain([first], first_iter)
+                               if first is not None else first_iter)
                               if epoch == start_epoch
                               else iter(batches_fn()))
                     t0 = time.perf_counter()
@@ -1265,6 +1558,7 @@ class TorchLearner(Estimator):
                     if steps_run == 0:
                         raise ValueError(f"batches_fn() yielded no batches "
                                          f"in epoch {epoch}")
+
                     stats["stream_batches"].append(steps_run)
                     self._finish_epoch(epoch, loss, stats, t0, rows,
                                        state[2])
@@ -1306,10 +1600,30 @@ class TorchLearner(Estimator):
             capturelib.count_fit_transfer("in", nbytes)
             yield (n, tuple(_to_device(r, dev) for r in raws), None,
                    _to_device(wb, dev))
-        for b in stream:
-            xb, yb = _stream_batch(b, cfg, self.getLoss())
-            n = len(xb)
-            target = _next_pow2(n)
+        from ..parallel import mesh as meshlib
+        world = meshlib.effective_process_count()
+        if getattr(self, "_plan", None) is None:
+            world = 1
+        while True:
+            b = next(stream, None)
+            if b is None:
+                xb = yb = None
+                n = local_target = 0
+            else:
+                xb, yb = _stream_batch(b, cfg, self.getLoss())
+                n = len(xb)
+                local_target = _next_pow2(n)
+            target = local_target
+            if world > 1:
+                # host-side lockstep: the ranks agree on the bucket every
+                # step; a drained stream reports 0 and feeds zero-weight
+                # dummies until the longest stream finishes
+                from ..parallel.dataplane import allgather_pyobj
+                target = max(allgather_pyobj(local_target))
+            if target == 0:
+                return
+            if xb is None:
+                xb, yb = self._stream_x0
             wb = np.zeros(target, dtype=np.float32)
             wb[:n] = 1.0
             xb, yb = _pad_rows(xb, target), _pad_rows(yb, target)

@@ -30,6 +30,11 @@ The transformer, for each block ``i``:
     params/block{i}/Dense_2/{kernel,bias}    -> blocks.{i}.fc1.{weight,bias}
     params/block{i}/Dense_3/{kernel,bias}    -> blocks.{i}.fc2.{weight,bias}
     params/LayerNorm_0/{scale,bias}          -> ln_f.{weight,bias}
+
+A MoE block (``num_experts > 0``) has no ``Dense_2``/``Dense_3``; its
+``MoEMLP_0/{gate,expert_w1,expert_b1,expert_w2,expert_b2}`` become
+``blocks.{i}.moe.{...}`` as they are (the port keeps the flax layout of
+the gate and the expert stacks).
     params/Dense_0/{kernel,bias}             -> head.{weight,bias}
 
 The ResNet family numbers its blocks across stages (``_BasicBlock_{i}`` or
@@ -79,6 +84,10 @@ def _conv(key, path, bias=False):
     return out
 
 
+# a MoE block's params, in the flax layout on both sides
+_MOE_PARAMS = ("gate", "expert_w1", "expert_b1", "expert_w2", "expert_b2")
+
+
 def _transformer_map(cfg):
     out = [Entry("tok_embed.weight", ("Embed_0/embedding",)),
            Entry("pos_embed.weight", ("Embed_1/embedding",))]
@@ -87,9 +96,13 @@ def _transformer_map(cfg):
         out += (_norm(pre + "ln1", b + "LayerNorm_0")
                 + _dense(pre + "qkv", b + "Dense_0", bias=False)
                 + _dense(pre + "proj", b + "Dense_1", bias=False)
-                + _norm(pre + "ln2", b + "LayerNorm_1")
-                + _dense(pre + "fc1", b + "Dense_2")
-                + _dense(pre + "fc2", b + "Dense_3"))
+                + _norm(pre + "ln2", b + "LayerNorm_1"))
+        if cfg.get("num_experts", 0) > 0:
+            out += [Entry(f"{pre}moe.{n}", (f"{b}MoEMLP_0/{n}",))
+                    for n in _MOE_PARAMS]
+        else:
+            out += (_dense(pre + "fc1", b + "Dense_2")
+                    + _dense(pre + "fc2", b + "Dense_3"))
     return out + _norm("ln_f", "LayerNorm_0") + _dense("head", "Dense_0")
 
 
@@ -159,10 +172,6 @@ def flax_map(config: dict) -> list:
     mtype = config.get("type")
     if mtype not in _MAPS:
         raise KeyError(f"unknown model type {mtype!r}; have {sorted(_MAPS)}")
-    if mtype == "transformer" and config.get("num_experts", 0) > 0:
-        raise NotImplementedError(
-            "MoE transformer weights wait for models/moe.py (ROADMAP.md "
-            "Queue 1 item 12)")
     return _MAPS[mtype](config)
 
 

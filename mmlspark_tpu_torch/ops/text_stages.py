@@ -4,7 +4,8 @@ toggleable tokenize -> stopwords -> ngram -> hashingTF -> IDF chain fit as
 one stage. Host work on scipy CSR, as in the JAX package.
 
 Not ported yet: the fleet-wide IDF of a sharded frame (ROADMAP.md Queue 1
-item 12); the port has no sharded frame.
+item 12b); a ``parallel.dataplane.ShardedDataFrame`` fits as its local
+shard.
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ DropColumns, SelectColumns, RenameColumn and FastVectorAssembler expose a
 pipeline segment); the host-only stages carry ``_uncapturable = True``.
 
 Not ported: ``ClassBalancer``'s fleet-wide class count merge over a
-sharded frame (ROADMAP.md Queue 1 item 12): the port's frames are never
-sharded.
+sharded frame (ROADMAP.md Queue 1 item 12b): a sharded frame balances
+its local shard.
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ CleanMissingDataModel and DataConversion also expose a ``capture``
 (core/capture.py): their work as tensor code inside a fused pipeline
 segment, in device dtypes. Not ported: the sharded-frame branches of
 CleanMissingData and SummarizeData (the fleet-wide merges of ROADMAP.md
-Queue 1 item 12): the port's frames are never sharded, so every statistic
-here is the exact single-frame one."""
+Queue 1 item 12b): every statistic here is the exact one of the frame it
+is given (a sharded frame's local shard)."""
 
 from __future__ import annotations
 

@@ -69,6 +69,14 @@ def test_importing_the_port_loads_no_jax():
             "mmlspark_tpu_torch.ops.flash_attention, "
             "mmlspark_tpu_torch.models.trainer, "
             "mmlspark_tpu_torch.parallel.prefetch, "
+            "mmlspark_tpu_torch.parallel.mesh, "
+            "mmlspark_tpu_torch.parallel.distributed, "
+            "mmlspark_tpu_torch.parallel.dataplane, "
+            "mmlspark_tpu_torch.parallel.collectives, "
+            "mmlspark_tpu_torch.parallel.plan, "
+            "mmlspark_tpu_torch.parallel.pipeline_parallel, "
+            "mmlspark_tpu_torch.parallel.sequence, "
+            "mmlspark_tpu_torch.models.moe, "
             "mmlspark_tpu_torch.models.gbdt, "
             "mmlspark_tpu_torch.models.gbdt.leafwise, "
             "mmlspark_tpu_torch.models.gbdt.efb, "

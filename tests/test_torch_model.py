@@ -190,17 +190,23 @@ def test_cuda_device_without_a_card_raises(flax_params):
 
 
 def test_unported_paths_raise(flax_params, tmp_path):
-    """tensorParallel and MoE still refuse; the HTTP repository and the
-    export artifact, refused until the serving slice, now work (held in
-    tests/test_torch_zoo.py and below): an unset model refuses to export,
-    and a server_url makes a RemoteRepo."""
+    """tensorParallel and MoE are ported (tests/test_torch_parallel.py and
+    tests/test_torch_moe.py hold them against the JAX package): with no
+    process group the world is one rank, and tensorParallel=2 raises the
+    JAX package's mesh error instead of serving unsharded; a MoE config
+    builds. The HTTP repository and the export artifact, refused until the
+    serving slice, work too (held in tests/test_torch_zoo.py and below):
+    an unset model refuses to export, and a server_url makes a
+    RemoteRepo."""
     df, _ = _score_frames(rows=3)
     model = TorchModel(inputCol="tokens", modelConfig=CFG, device="cpu",
                        modelParams=flax_params, tensorParallel=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=r"model axis \(2\) must divide the "
+                       r"device count \(1\)"):
         model.transform(df)
-    with pytest.raises(NotImplementedError):
-        build_model(dict(CFG, num_experts=4))
+    with torch.device("meta"):
+        moe = build_model(dict(CFG, num_experts=4))
+    assert moe.blocks[1].moe.num_experts == 4
     from mmlspark_tpu_torch.models.downloader import (ModelDownloader,
                                                       RemoteRepo)
     dl = ModelDownloader(str(tmp_path / "repo"), server_url="http://zoo")

@@ -192,7 +192,8 @@ def test_token_ids_out_of_range_raise():
 
 
 def test_parallelism_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # fitStream is data(+tensor)-parallel, as in the JAX package
+    with pytest.raises(ValueError, match="fitStream is data"):
         _learner(sequenceParallel=2).fitStream(_stream_fn())
     # fitStreamCaptured is ported: raw batches through a one-stage plan
     # train exactly as fitStream over the staged batches

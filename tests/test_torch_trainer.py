@@ -362,15 +362,29 @@ def test_init_params_shapes_and_distributions():
     ("pipelineParallel", 2), ("elastic", True),
     ("checkpointDir", "/ckpt")])
 def test_unported_params_raise(param, value):
-    """Each unported Param raises naming its ROADMAP item; checkpoints are
-    ported, so ``checkpointDir`` raises only with elastic training."""
+    """Elastic training raises naming its ROADMAP item (checkpoints are
+    ported, so ``checkpointDir`` raises only with elastic training). The
+    four parallel Params are ported (tests/test_torch_parallel_fit.py):
+    with no process group the world is one rank, and each raises the JAX
+    package's ValueError for one device instead of running unsharded."""
     df, _ = _frames(rows=8, seed=8)
     extra = {"elastic": True} if param == "checkpointDir" else {}
     learner = TorchLearner(modelConfig=CFG, device="cpu", featuresCol="tokens",
                            **{param: value}, **extra)
-    match = ("item 13b" if param in ("elastic", "checkpointDir")
-             else "ROADMAP.md Queue 1 item 12")
-    with pytest.raises(NotImplementedError, match=match):
+    one_rank = {
+        "tensorParallel": r"model axis \(2\) must divide the device count "
+                          r"\(1\)",
+        "sequenceParallel": r"sequenceParallel\*tensorParallel = 2\*1 must "
+                            r"divide the device count \(1\)",
+        "expertParallel": "expertParallel>1 requires a transformer model "
+                          "with num_experts set",
+        "pipelineParallel": r"pipelineParallel \(2\) must divide the device "
+                            r"count \(1\)"}
+    if param in one_rank:
+        with pytest.raises(ValueError, match=one_rank[param]):
+            learner.fit(df)
+        return
+    with pytest.raises(NotImplementedError, match="item 13b"):
         learner.fit(df)
 
 
