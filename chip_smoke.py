@@ -175,7 +175,7 @@ Phases, each printing one JSON line:
    launch per transform, none for LR, NB and the MLP (RF's printed);
    FindBestModel(AUC) names the learner with the highest AUC. (b)
    ``TuneHyperparameters`` over [LogisticRegression, LightGBMClassifier]
-   (numRuns 3, numFolds 3, parallelism 4, AUC) on a featurized 100k-row
+   (numRuns 3, numFolds 2, parallelism 4, AUC) on a featurized 100k-row
    sample: the folds grow leaf-wise, and the launches over the search
    (its 4 threads) equal the sum of its fits' (numLeaves x numIterations
    node histograms each) and fold scorings' (one leaf-wise predict each);
@@ -325,6 +325,20 @@ Phases, each printing one JSON line:
    bit, a transform through ``_transform_multihost`` equal to the plain
    one bit for bit, and tensor/sequence/expert/pipeline parallelism 2 each
    raising the JAX package's ValueError on one rank.
+20. gbdt_parallel — the sharded GBDT builders (``fit_gbdt`` with a mesh)
+   over a one-rank NCCL group on the gbdt slice's 1M x 28 rows: level-wise
+   ``tree_learner="data"`` and ``"feature"`` at the stage's defaults (500
+   row-4 launches each), a ``hist_impl="pallas"`` data fit of
+   GBDT_PAR_PALLAS_ITERS iterations (row 7, 5 a iteration) and a leaf-wise
+   data fit of 31 leaves (3100 row-4 launches); every ensemble bit for bit
+   the no-group fit's (the gbdt and gbdt_leafwise phases' states) with the
+   same launches; the level-wise data ensemble scored through row 5 and the
+   leaf-wise one through row 6, once each, equal to the no-group scores;
+   each fit's seconds, and the data and leaf-wise fits traced once more
+   with telemetry on: the ``gbdt/iter/{grad,build,apply}`` span totals
+   beside the traced no-group fit's ``gbdt/iter/step`` (the distributed
+   path's overhead on one card). The AutoML merges need two ranks, which
+   NCCL refuses on one card: they run in the CPU tests only.
 
 Then the kernels line, the card's name and power limit as nvidia-smi prints
 them, and last ``{"ok": true, "device": {...}}``. Any failure raises before
@@ -441,7 +455,9 @@ WORKCLASS = ("Private", "Self-emp-not-inc", "Self-emp-inc", "Federal-gov",
 # the MLP's cut: batch 1024 and 5 epochs on the sample (the defaults, batch
 # 128 for 30 epochs over 800k rows, are ~190k host-paced steps)
 AUTOML_MLP = {"layers": (64,), "batchSize": 1024, "maxIter": 5}
-AUTOML_TUNE = {"numRuns": 3, "numFolds": 3, "parallelism": 4, "seed": 0}
+# two folds, not three: the search's 4 threads (ROADMAP.md Queue 3, F1)
+# take the longest of any step, and the script must end inside its limit
+AUTOML_TUNE = {"numRuns": 3, "numFolds": 2, "parallelism": 4, "seed": 0}
 TOL_AUTOML_ACCURACY = 0.85
 # gaussian NB alone: given the label, x0..x2 are correlated (the label is a
 # linear mix of them), which its independence assumption cannot model; it
@@ -539,6 +555,8 @@ PAR_TRAIN_ROWS, PAR_TRAIN_BATCH, PAR_TRAIN_EPOCHS = 16, 8, 2
 PAR_MOE_AUX = 0.01
 PAR_DISPATCH_ROWS = 2
 PAR_NCCL_LAYERS, PAR_NCCL_ROWS = 2, 16
+# the gbdt_parallel phase's hist_impl="pallas" fit (row 7)
+GBDT_PAR_PALLAS_ITERS = 10
 # the index dispatch's combined output against the one-hot einsums': the
 # gate rounds to bf16 in both, the sums of two products round once in f32
 # here and in the einsum's accumulator there (max |delta| / max |ref|)
@@ -1973,13 +1991,16 @@ def phase_gbdt(torch, env, dev="cuda"):
     yj = torch.from_numpy(y).to(dev)
     ones_n, ones_d = torch.ones(n, device=dev), torch.ones(d, device=dev)
 
+    build = functools.partial(
+        engine._build_tree_multi, depth=p.max_depth, n_bins=p.max_bin,
+        lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+        min_child_weight=p.min_child_weight, min_split_gain=p.min_split_gain,
+        hist_impl="mxu")
+
     def step():
-        engine._boost_step_level(
-            bins, bins_t, raw, yj, ones_n, ones_d, p.learning_rate, p.alpha,
-            depth=p.max_depth, n_bins=p.max_bin, lambda_l2=p.lambda_l2,
-            lambda_l1=p.lambda_l1, min_child_weight=p.min_child_weight,
-            min_split_gain=p.min_split_gain, hist_impl="mxu",
-            objective="binary", num_class=1, update_raw=True)
+        engine._boost_step(
+            build, bins, bins_t, raw, yj, ones_n, ones_d, p.learning_rate,
+            p.alpha, objective="binary", num_class=1, update_raw=True)
     step()
     emit({"phase": "gbdt", "rows": n, "features": d,
           "params": {"num_iterations": p.num_iterations,
@@ -1998,7 +2019,8 @@ def phase_gbdt(torch, env, dev="cuda"):
           "gpu": env.gpu_name_and_power_limit(),
           "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
     return {"node_hist": fit_launches["node_hist"], "fused": fused_launches,
-            "predict": serving["transform_launches"]}
+            "predict": serving["transform_launches"], "state": s1,
+            "fused_state": stages._ensemble_to_state(fused)}
 
 
 def phase_gbdt_leafwise(torch, env, dev="cuda"):
@@ -2009,6 +2031,7 @@ def phase_gbdt_leafwise(torch, env, dev="cuda"):
     is for rehearsing the phase on the CPU."""
     from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
     from mmlspark_tpu_torch.models.gbdt import engine, stages
+    from mmlspark_tpu_torch.models.gbdt.leafwise import build_tree_leafwise_multi
     x, y = gbdt_data()
     n, d = x.shape
     df = DataFrame({"features": x, "label": y})
@@ -2037,15 +2060,18 @@ def phase_gbdt_leafwise(torch, env, dev="cuda"):
     ones_n, ones_d = torch.ones(n, device=dev), torch.ones(d, device=dev)
     no_cats = torch.zeros(d, device=dev)
 
+    build = functools.partial(
+        build_tree_leafwise_multi, cat_feats=no_cats,
+        num_leaves=p.num_leaves, n_bins=p.max_bin, lambda_l2=p.lambda_l2,
+        lambda_l1=p.lambda_l1, min_child_weight=p.min_child_weight,
+        min_split_gain=p.min_split_gain, cat_smooth=p.cat_smooth,
+        max_depth=0, hist_impl="mxu", has_cats=False)
+
     def step():
-        engine._boost_step_leafwise(
-            bins, bins_t, raw, yj, ones_n, ones_d, no_cats, p.learning_rate,
-            p.alpha, num_leaves=p.num_leaves, n_bins=p.max_bin,
-            lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
-            min_child_weight=p.min_child_weight,
-            min_split_gain=p.min_split_gain, cat_smooth=p.cat_smooth,
-            max_depth=0, hist_impl="mxu", has_cats=False,
-            objective="binary", num_class=1, update_raw=True)
+        engine._boost_step(
+            build, bins, bins_t, raw, yj, ones_n, ones_d, p.learning_rate,
+            p.alpha, objective="binary", num_class=1, update_raw=True,
+            mode="leafwise")
     step()
     emit({"phase": "gbdt_leafwise", "rows": n, "features": d,
           "params": {"num_iterations": p.num_iterations,
@@ -2064,7 +2090,7 @@ def phase_gbdt_leafwise(torch, env, dev="cuda"):
           "gpu": env.gpu_name_and_power_limit(),
           "profile_of_one_iteration": device_breakdown(torch, step, top=10)})
     return {"node_hist": fit_launches["node_hist"],
-            "predict_lw": serving["transform_launches"]}
+            "predict_lw": serving["transform_launches"], "state": s1}
 
 
 def efb_frame():
@@ -5218,6 +5244,164 @@ def phase_parallel(torch, env, dev="cuda"):
     return {"serve_moe": serve["launches"], "train_moe": train["launches"]}
 
 
+def timed_fit(torch, fit, dev):
+    """(ensemble, seconds, launches) of one synchronised fit, every GBDT
+    count set to 0 just before."""
+    synchronize(torch, dev)
+    reset_gbdt_counts()
+    t0 = time.perf_counter()
+    ens = fit()
+    synchronize(torch, dev)
+    return ens, time.perf_counter() - t0, gbdt_counts()
+
+
+def gbdt_span_totals(torch, fit, dev) -> dict:
+    """``fit`` run once with telemetry on: its seconds and, per
+    ``gbdt/iter/*`` span, the count and the summed seconds (each span waits
+    for its device work)."""
+    from mmlspark_tpu_torch import telemetry
+    telemetry.enable()
+    telemetry.trace.clear()
+    try:
+        synchronize(torch, dev)
+        t0 = time.perf_counter()
+        fit()
+        synchronize(torch, dev)
+        fit_s = time.perf_counter() - t0
+        events = telemetry.trace.events()
+    finally:
+        telemetry.disable()
+        telemetry.trace.clear()
+    spans = {}
+    for ev in events:
+        if ev["name"].startswith("gbdt/iter/"):
+            one = spans.setdefault(ev["name"], {"count": 0, "s": 0.0})
+            one["count"] += 1
+            one["s"] += ev["dur"] / 1e6
+    return {"fit_s": fit_s, "spans": spans}
+
+
+def phase_gbdt_parallel(torch, env, dev="cuda", no_group=None):
+    """The sharded GBDT builders on one card: a one-rank process group (NCCL
+    on the card, over a TCPStore on 127.0.0.1) and ``fit_gbdt`` with a mesh
+    over it on the gbdt slice's 1M x 28 rows — level-wise
+    ``tree_learner="data"`` (histograms and leaf sums all-reduced) and
+    ``"feature"`` (split candidates all-gathered) at the stage's defaults,
+    a ``hist_impl="pallas"`` data fit of GBDT_PAR_PALLAS_ITERS iterations,
+    and a leaf-wise data fit of 31 leaves. Each ensemble must equal the
+    no-group fit's bit for bit (``no_group``: the gbdt and gbdt_leafwise
+    phases' states, else fitted here) with the same kernel launches; the
+    level-wise data ensemble is scored through row 5 and the leaf-wise one
+    through row 6, each once, equal to the no-group ensemble's scores.
+    Prints each fit's seconds and, for the data and leaf-wise fits traced
+    with telemetry on, the ``gbdt/iter/{grad,build,apply}`` span totals
+    beside the traced no-group fit's ``gbdt/iter/step``. Returns the
+    launches of the fits and scorings."""
+    import socket
+
+    import torch.distributed as tdist
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.models.gbdt import engine, stages
+    from mmlspark_tpu_torch.parallel import distributed
+    from mmlspark_tpu_torch.parallel import mesh as meshlib
+    t_phase = time.perf_counter()
+    no_group = dict(no_group or {})
+    x, y = gbdt_data()
+    n = len(x)
+    # the gbdt phase's Params (its auto policy is depthwise at 1M rows)
+    level = LightGBMClassifier(device=dev).setGrowthPolicy(
+        "depthwise")._engine_params("binary", 1, n_rows=n)
+    leaf = LightGBMClassifier(device=dev).setGrowthPolicy(
+        "leafwise")._engine_params("binary", 1, n_rows=n)
+    pallas_iters = GBDT_PAR_PALLAS_ITERS
+    gbdt_keys = ("node_hist", "fused", "predict", "predict_lw")
+
+    def only(**want):
+        return {**dict.fromkeys(gbdt_keys, 0), **want}
+    # name -> (params, the no-group state's key, the launches of one fit)
+    fits = {"data": (level, "levelwise",
+                     only(node_hist=GBDT_TREES * GBDT_DEPTH)),
+            "feature": (level._replace(tree_learner="feature"), "levelwise",
+                        only(node_hist=GBDT_TREES * GBDT_DEPTH)),
+            "pallas": (level._replace(hist_impl="pallas",
+                                      num_iterations=pallas_iters),
+                       "pallas", only(fused=pallas_iters * GBDT_DEPTH)),
+            "leafwise": (leaf, "leafwise",
+                         only(node_hist=GBDT_LEAVES * GBDT_TREES))}
+    no_group_s = {}
+    for name, (p, key, want) in fits.items():
+        if key not in no_group:
+            ens, no_group_s[key], got = timed_fit(
+                torch, lambda: engine.fit_gbdt(x, y, p, device=dev), dev)
+            check_launches(got, want, f"the no-group {name} fit", dev)
+            no_group[key] = stages._ensemble_to_state(ens)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, init_timeout=60,
+                           device=dev)
+    init_s = time.perf_counter() - t0
+    out, group_states, launches = {}, {}, dict.fromkeys(gbdt_keys, 0)
+    try:
+        backend = tdist.get_backend()
+        check(backend == ("nccl" if dev == "cuda" else "gloo"),
+              f"the group's backend is {backend}")
+        mesh = meshlib.create_mesh()
+        check(mesh.distributed and mesh.group("data") is not None,
+              f"{mesh} has no data group")
+        for name, (p, key, want) in fits.items():
+            ens, fit_s, got = timed_fit(
+                torch, lambda: engine.fit_gbdt(x, y, p, mesh=mesh,
+                                               device=dev), dev)
+            check_launches(got, want, f"the one-rank {name} fit", dev)
+            state = stages._ensemble_to_state(ens)
+            check(same_state(state, no_group[key]),
+                  f"the one-rank {name} fit differs from the no-group fit")
+            group_states[name] = state
+            for c in gbdt_keys:
+                launches[c] += got[c]
+            out[name] = {"tree_learner": p.tree_learner,
+                         "hist_impl": p.hist_impl,
+                         "iterations": p.num_iterations, "fit_s": fit_s,
+                         "no_group_fit_s": no_group_s.get(key),
+                         "launches": got, "bit_equal_to_no_group": True}
+        for name, kernel in (("data", "predict"), ("leafwise", "predict_lw")):
+            ens = stages._state_to_ensemble(group_states[name], "binary",
+                                            dev)
+            raw, _, got = timed_fit(
+                torch, lambda: engine.predict_raw(ens, x), dev)
+            check_launches(got, only(**{kernel: 1}),
+                           f"scoring the one-rank {name} ensemble", dev)
+            launches[kernel] += got[kernel]
+            want = engine.predict_raw(stages._state_to_ensemble(
+                no_group[fits[name][1]], "binary", dev), x)
+            check(np.array_equal(raw, want),
+                  f"the one-rank {name} ensemble scores differ")
+            out[name]["score_launches"] = got
+        for name in ("data", "leafwise"):
+            p = fits[name][0]
+            group = gbdt_span_totals(torch, lambda: engine.fit_gbdt(
+                x, y, p, mesh=mesh, device=dev), dev)
+            plain = gbdt_span_totals(torch, lambda: engine.fit_gbdt(
+                x, y, p, device=dev), dev)
+            check({k: v["count"] for k, v in group["spans"].items()}
+                  == dict.fromkeys(("gbdt/iter/grad", "gbdt/iter/build",
+                                    "gbdt/iter/apply"), p.num_iterations),
+                  f"the one-rank {name} fit's spans {group['spans']}")
+            check({k: v["count"] for k, v in plain["spans"].items()}
+                  == {"gbdt/iter/step": p.num_iterations},
+                  f"the no-group {name} fit's spans {plain['spans']}")
+            out[name]["traced"] = {"group": group, "no_group": plain}
+    finally:
+        distributed.shutdown()
+    emit({"phase": "gbdt_parallel", "rows": n, "features": x.shape[1],
+          "backend": backend, "init_s": init_s, "fits": out,
+          "launches": launches, "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -5233,7 +5417,7 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
           "vision_train", "automl_tabular", "automl_text", "platform",
-          "ingest", "serving", "fusion", "parallel")
+          "ingest", "serving", "fusion", "parallel", "gbdt_parallel")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -5254,6 +5438,7 @@ PHASE_FNS = {
     "serving": phase_serving,
     "fusion": phase_fusion,
     "parallel": phase_parallel,
+    "gbdt_parallel": phase_gbdt_parallel,
 }
 
 
@@ -5320,6 +5505,10 @@ def main(argv=None) -> int:
     serving = phase_serving(torch, env)
     fusion = phase_fusion(torch, env)
     parallel = phase_parallel(torch, env)
+    gbdt_par = phase_gbdt_parallel(
+        torch, env, no_group={"levelwise": gbdt["state"],
+                              "pallas": gbdt["fused_state"],
+                              "leafwise": leafwise["state"]})
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],
@@ -5329,18 +5518,21 @@ def main(argv=None) -> int:
                     "fit_fused": fusion["fit_fused"],
                     "fit_staged_pipeline_leafwise": fusion["fit_leafwise"],
                     "fit_fused_leafwise": fusion["fit_fused_leafwise"],
-                    "serve_pipeline_composite": fusion["serve_hist"]}
+                    "serve_pipeline_composite": fusion["serve_hist"],
+                    "gbdt_parallel": gbdt_par["node_hist"]}
     predict_by_path = {"transform": gbdt["predict"],
                        "automl_transform": automl["predict"],
                        "serve_pipeline": serving["predict"],
                        "transform_fused": fusion["transform_fused"],
                        "transform_staged_pipeline":
                            fusion["transform_staged"],
-                       "serve_pipeline_composite": fusion["serve_predict"]}
+                       "serve_pipeline_composite": fusion["serve_predict"],
+                       "gbdt_parallel": gbdt_par["predict"]}
     predict_lw_by_path = {"transform_leafwise": leafwise["predict_lw"],
                           "automl_tune": automl["predict_lw"],
                           "transform_fused_split":
-                              fusion["transform_fused_split"]}
+                              fusion["transform_fused_split"],
+                          "gbdt_parallel": gbdt_par["predict_lw"]}
     csrc = "mmlspark_tpu_torch/ops/csrc/"
     replaces = "mmlspark_tpu/ops/pallas_kernels.py:"
     emit({"kernels": [
@@ -5393,8 +5585,9 @@ def main(argv=None) -> int:
                    sum(predict_lw_by_path.values()), predict_lw_by_path,
                    gbdt_worst["predict_lw"], gbdt_timing["predict_lw"]),
         gbdt_entry("histogram_fused", "gbdt_histogram.cu", "769",
-                   gbdt["fused"],
-                   {"fit_hist_impl_pallas_10_iterations": gbdt["fused"]},
+                   gbdt["fused"] + gbdt_par["fused"],
+                   {"fit_hist_impl_pallas_10_iterations": gbdt["fused"],
+                    "gbdt_parallel": gbdt_par["fused"]},
                    gbdt_worst["fused"], gbdt_timing["fused"])]})
     print(env.gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,12 @@ structs unrolled to CHW pixels; vector columns passed through — then all
 parts concatenate into ONE dense f32 matrix (FastVectorAssembler analog,
 core/spark/FastVectorAssembler.scala:18-34), built column-block-wise.
 
-Not ported yet: merging per-process plans of a sharded frame
-(``_merge_sharded_plans``, ROADMAP.md Queue 1 item 12b); a sharded frame
-fits as its local shard.
+A sharded frame (``parallel.dataplane``) in a world of more than one rank
+fits one fleet-wide plan: every rank plans its local shard (an empty shard
+plans its object columns as ``unknown``), the plans are gathered once for
+all columns, and ``_merge_sharded_plans`` merges them as a fit over the
+whole frame would plan (levels unioned, an inferred categorical past
+MAX_ONE_HOT levels hashed as text).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from ..ops import text_ops
 MAX_ONE_HOT = 32  # low-cardinality threshold for treating strings as categorical
 
 
-def _plan_column(df: DataFrame, name: str, one_hot: bool, num_features: int):
+def _plan_column(df: DataFrame, name: str, one_hot: bool, num_features: int,
+                 allow_unknown: bool = False):
     col = df.col(name)
     levels = CategoricalUtilities.getLevels(df, name)
     if levels is not None:
@@ -46,12 +50,17 @@ def _plan_column(df: DataFrame, name: str, one_hot: bool, num_features: int):
             uniq = {v for v in col.tolist()}
             if len(uniq) <= MAX_ONE_HOT:
                 # "inferred" marks levels discovered from the data (vs
-                # schema metadata), as in the JAX package's plans
+                # schema metadata): a sharded fit may revise the decision
+                # once every shard's levels are pooled
                 return {"kind": "categorical" if one_hot else "index",
                         "levels": sorted(uniq), "inferred": True}
             return {"kind": "text", "num_features": num_features}
         if np.ndim(first) >= 1 or hasattr(first, "toarray"):
             return {"kind": "vector"}
+    if allow_unknown and col.dtype.kind == "O" and not len(col):
+        # empty local shard of a sharded frame: another rank's plan
+        # decides at the merge
+        return {"kind": "unknown"}
     raise ValueError(f"cannot featurize column {name!r} (dtype {col.dtype})")
 
 
@@ -113,13 +122,69 @@ class Featurize(Estimator, HasOutputCol):
                                 default=1 << 12, min=1)
 
     def fit(self, df: DataFrame) -> FeaturizeModel:
+        from ..parallel import dataplane
+        sharded = dataplane.is_sharded(df)
         cols = list(self.getInputCols()) or \
             [c for c in df.columns if c not in set(self.getExcludeCols())]
         plans = []
         for name in cols:
             plans.append((name, _plan_column(
                 df, name, self.getOneHotEncodeCategoricals(),
-                self.getNumberOfFeatures())))
+                self.getNumberOfFeatures(), allow_unknown=sharded)))
+        if sharded:
+            plans = _merge_sharded_plans(
+                plans, self.getOneHotEncodeCategoricals(),
+                self.getNumberOfFeatures())
         return (FeaturizeModel().setOutputCol(self.getOutputCol())
                 .setInputPlans(plans))
+
+
+def _merge_sharded_plans(local_plans, one_hot: bool, num_features: int):
+    """Combine per-rank featurization plans into one fleet-wide plan: the
+    fitted statistics a fit over the whole frame would have computed
+    (reference: Spark aggregates these cluster-wide inside StringIndexer
+    etc., AssembleFeatures.scala:442). One gather for all columns.
+
+    Merge rules per column: categorical levels union across shards; an
+    INFERRED string categorical whose pooled cardinality exceeds
+    MAX_ONE_HOT degrades to hashed text (the decision a global fit makes);
+    any shard seeing text makes the column text; 'unknown' (empty local
+    shard) defers to whichever shard had data."""
+    from ..parallel import dataplane
+    all_plans = dataplane.allgather_pyobj(local_plans)
+    merged = []
+    for i, (name, _) in enumerate(local_plans):
+        variants = [p[i][1] for p in all_plans]
+        known = [v for v in variants if v["kind"] != "unknown"]
+        kinds = {v["kind"] for v in known}
+        if not kinds:
+            raise ValueError(f"column {name!r} is empty on every shard")
+        if kinds <= {"categorical", "index"}:
+            inferred = any(v.get("inferred") for v in variants)
+            if inferred:
+                levels = sorted(set().union(*[set(v.get("levels", ()))
+                                              for v in known]))
+            else:
+                # schema-provided levels: every shard read the same column
+                # metadata — keep its order (re-sorting would scramble
+                # category indices against a single-frame fit)
+                levels = list(known[0]["levels"])
+            if inferred and len(levels) > MAX_ONE_HOT:
+                merged.append((name, {"kind": "text",
+                                      "num_features": num_features}))
+            else:
+                plan = {"kind": "categorical" if one_hot else "index",
+                        "levels": levels}
+                if inferred:
+                    plan["inferred"] = True
+                merged.append((name, plan))
+        elif "text" in kinds:
+            merged.append((name, {"kind": "text",
+                                  "num_features": num_features}))
+        elif len(kinds) == 1:
+            merged.append((name, dict(known[0])))
+        else:
+            raise ValueError(f"column {name!r} plans disagree across "
+                             f"shards: {sorted(kinds)}")
+    return merged
 

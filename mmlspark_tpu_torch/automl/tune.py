@@ -10,9 +10,13 @@ parts of fits that release the GIL, but on a CUDA card the GBDT fits are
 host-paced streams of short launches, and there 4 threads run
 chip_smoke.py's search ~4.5x slower than 1 (ROADMAP.md Queue 3, measured
 by ``tools/automl_tune_threads.py``). The best setting is refit on the full
-data. Not ported yet: the supervised ``backend="fleet"`` (ASHA
-over ``trials.py``/``scheduler.py``, ROADMAP.md Queue 1 item 13b) and the
-multi-process search of a process fleet (item 12b).
+data. In a world of more than one rank the search is fleet-parallel:
+every rank holds the whole tuning frame (a sharded frame is gathered; a
+plain one is gathered only when its digest differs between ranks), rank r
+fits the jobs j with j % world == r inside ``local_fit_mode`` (no
+collectives), one sum merges the results, and every rank refits the
+winner locally. Not ported yet: the supervised ``backend="fleet"`` (ASHA
+over ``trials.py``/``scheduler.py``, ROADMAP.md Queue 1 item 13b).
 """
 
 from __future__ import annotations
@@ -207,11 +211,15 @@ class TuneHyperparameters(Estimator, HasLabelCol):
 
         # fold masks are precomputed: eval_fold runs on a thread pool, and
         # a dict populated from inside the workers would race
-        mask_cache = {}
-        for fi, val_idx in enumerate(folds):
-            m = np.zeros(df.count(), dtype=bool)
-            m[val_idx] = True
-            mask_cache[fi] = m
+        def _fold_masks(n):
+            masks = {}
+            for fi, val_idx in enumerate(folds):
+                m = np.zeros(n, dtype=bool)
+                m[val_idx] = True
+                masks[fi] = m
+            return masks
+
+        mask_cache = _fold_masks(df.count())
 
         def eval_fold(est, setting, fold_i):
             val_mask = mask_cache[fold_i]
@@ -223,22 +231,73 @@ class TuneHyperparameters(Estimator, HasLabelCol):
         jobs = [(ci, fi) for ci in range(len(candidates))
                 for fi in range(self.getNumFolds())]
         results = np.zeros(len(jobs))
-        with ThreadPoolExecutor(self.getParallelism()) as pool:
-            futs = {pool.submit(eval_fold, candidates[ci][0],
-                                candidates[ci][1], fi): j
-                    for j, (ci, fi) in enumerate(jobs)}
-            for fut, j in futs.items():
-                results[j] = fut.result()
+        from ..parallel import dataplane
+        from ..parallel import mesh as meshlib
+        width = self.getParallelism()
+        nproc = meshlib.effective_process_count()
+        if nproc > 1:
+            # fleet-parallel search: each (candidate, fold) job goes to one
+            # rank round-robin, and inside local_fit_mode its fits run with
+            # no collectives (the reference's thread-pool trick,
+            # TuneHyperparameters.scala:78-94, across the fleet). Every
+            # rank needs the whole tuning frame for exact CV: the tuning
+            # set fits one host by construction.
+            if dataplane.is_sharded(df):
+                df = dataplane._gather_frames(df.localFrame())
+            elif len(set(dataplane.allgather_pyobj(_frame_digest(df)))) > 1:
+                # a plain frame on a fleet is ambiguous: identical frames
+                # everywhere are replicated (used as they are), differing
+                # ones are shards (gathered)
+                df = dataplane._gather_frames(df)
+            folds = _kfold_indices(df.count(), self.getNumFolds(),
+                                   self.getSeed())
+            mask_cache = _fold_masks(df.count())
+            rank = meshlib.process_index()
+            mine = [j for j in range(len(jobs)) if j % nproc == rank]
+            with meshlib.local_fit_mode(), ThreadPoolExecutor(width) as pool:
+                futs = {pool.submit(eval_fold, candidates[jobs[j][0]][0],
+                                    candidates[jobs[j][0]][1], jobs[j][1]): j
+                        for j in mine}
+                for fut, j in futs.items():
+                    results[j] = fut.result()
+            # merge: each job was computed by exactly one rank
+            results = dataplane.allreduce_sum(results)
+        else:
+            with ThreadPoolExecutor(width) as pool:
+                futs = {pool.submit(eval_fold, candidates[ci][0],
+                                    candidates[ci][1], fi): j
+                        for j, (ci, fi) in enumerate(jobs)}
+                for fut, j in futs.items():
+                    results[j] = fut.result()
 
         per_candidate = results.reshape(len(candidates), self.getNumFolds())
         means = per_candidate.mean(axis=1)
         best_i = int(np.argmax(means) if maximize else np.argmin(means))
         best_est, best_setting = candidates[best_i]
-        best_model = best_est.copy(dict(best_setting, labelCol=label)).fit(df)
+        best = best_est.copy(dict(best_setting, labelCol=label))
+        if nproc > 1:
+            # every rank holds the same whole tuning frame here: a local
+            # deterministic refit gives the same model everywhere (the
+            # collective path would read nproc copies as shards)
+            with meshlib.local_fit_mode():
+                best_model = best.fit(df)
+        else:
+            best_model = best.fit(df)
         return (TuneHyperparametersModel()
                 .setBestModel(best_model)
                 .setBestMetric(float(means[best_i]))
                 .setBestSetting(dict(best_setting)))
+
+
+def _frame_digest(df: DataFrame) -> str:
+    """A content digest of a frame's columns (ranks compare theirs to tell
+    a replicated frame from per-rank shards)."""
+    import hashlib
+    import pickle
+    return hashlib.sha256(pickle.dumps(
+        {k: np.asarray(v).tobytes() if v.dtype.kind != "O"
+         else pickle.dumps(v.tolist())
+         for k, v in df._cols.items()})).hexdigest()
 
 
 # ---------------------------------------------------------- find best model

@@ -5,8 +5,9 @@ value-indexer/.../ValueIndexer.scala:54,100, IndexToValue.scala:26).
 Fits a dictionary over a column's distinct values, transforms values to
 indices, and records the levels in column metadata (the reference's
 categorical-levels contract, Categoricals.scala) so downstream learners and
-IndexToValue can decode. Not ported yet: the fleet-wide dictionary of a
-sharded frame (ROADMAP.md Queue 1 item 12b)."""
+IndexToValue can decode. A sharded frame (``parallel.dataplane``) in a
+world of more than one rank fits the fleet-wide dictionary: the union of
+every rank's levels, gathered once, so every rank holds the same model."""
 
 from __future__ import annotations
 
@@ -44,10 +45,19 @@ class ValueIndexerModel(Model, HasInputCol, HasOutputCol):
 
 class ValueIndexer(Estimator, HasInputCol, HasOutputCol):
     def fit(self, df: DataFrame) -> ValueIndexerModel:
+        levels = _sorted_levels(df.col(self.getInputCol()))
+        from ..parallel import dataplane
+        if dataplane.is_sharded(df):
+            # fleet-wide dictionary: union of every shard's local levels
+            merged = set().union(*dataplane.allgather_pyobj(set(levels)))
+            try:
+                levels = sorted(merged)
+            except TypeError:
+                levels = sorted(merged, key=str)
         return (ValueIndexerModel()
                 .setInputCol(self.getInputCol())
                 .setOutputCol(self.getOutputCol())
-                .setLevels(_sorted_levels(df.col(self.getInputCol()))))
+                .setLevels(levels))
 
 
 class IndexToValue(Transformer, HasInputCol, HasOutputCol):

@@ -474,8 +474,23 @@ class MultilayerPerceptronClassifier(Estimator, HasFeaturesCol, HasLabelCol):
         # MLP convergence on raw-scale columns is luck-of-the-batch-order;
         # tree learners are scale-free so only this wrapper needs it
         mat = to_float32_matrix(df.col(self.getFeaturesCol()))
-        mu = mat.mean(axis=0)
-        sd = mat.std(axis=0)
+        from ..parallel import dataplane
+        if dataplane.is_sharded(df):
+            # fleet-wide moments: each shard must standardize identically
+            # (the DP gradient all-reduce mixes everyone's batches), and
+            # every rank must build the same head (a shard may lack the
+            # top class)
+            tot = dataplane.allreduce_sum(np.stack([
+                np.full(mat.shape[1], float(len(mat))),
+                mat.sum(axis=0, dtype=np.float64),
+                (mat.astype(np.float64) ** 2).sum(axis=0)]))
+            cnt = np.maximum(tot[0], 1.0)
+            mu = tot[1] / cnt
+            sd = np.sqrt(np.maximum(tot[2] / cnt - mu ** 2, 0.0))
+            k = max(dataplane.allgather_pyobj(k))
+        else:
+            mu = mat.mean(axis=0)
+            sd = mat.std(axis=0)
         sd[sd < 1e-7] = 1.0
         sdf = df.withColumn(self.getFeaturesCol(),
                             object_column(((mat - mu) / sd)

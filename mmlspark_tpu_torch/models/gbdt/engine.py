@@ -27,10 +27,10 @@ generators in the JAX engine's order, so the draws match it.
 
 Telemetry, under the JAX package's names (nothing is measured while it is
 off): the spans ``gbdt/fit``, ``gbdt/bin``, ``gbdt/iter/step`` (one per
-iteration: the serial engine fuses gradients, the K trees and the raw
-update into one step, as the JAX engine's serial path does; its
-``gbdt/iter/{grad,build,apply}`` spans belong to the sharded builders of
-item 12b) and ``gbdt/eval``; the iteration, iteration-time, eval-time and
+iteration of a serial fit: gradients, the K trees and the raw update as
+one step, as the JAX engine's serial path does), ``gbdt/iter/{grad,build,
+apply}`` (one each per iteration of a sharded fit, the collectives inside
+``build``) and ``gbdt/eval``; the iteration, iteration-time, eval-time and
 bin-time metrics; the predict gauges; ``profiler.wrap(...,
 "gbdt.predict_quant")`` around the quantized predicts; and a device memory
 sample per iteration and per predict while the profiler is on.
@@ -39,13 +39,23 @@ sample per iteration and per predict while the profiler is on.
 sync-free function of device tensors, binning included: a fused pipeline
 segment (core/capture.py) runs it inside its one program.
 
-Not ported yet, each raising NotImplementedError: a mesh or a
-multi-process fit, level-wise or leaf-wise (ROADMAP item 12b), and
-``fit_gbdt_elastic`` (item 13b).
+Distributed fits (``fit_gbdt(mesh=...)``) run eagerly on the mesh's device
+with explicit ``torch.distributed`` collectives over its ``data`` group:
+``tree_learner="data"`` (and "auto") all-reduces each rank's histograms
+and leaf sums through an :class:`AllReduce`, level-wise and leaf-wise;
+``tree_learner="feature"`` (``make_feature_builder``)
+all-gathers each rank's best split of its feature slice (level-wise). The
+histograms are the same kernels as a serial fit's. Unlike the JAX engine,
+ranks may hold different numbers of rows: the learners sum histograms,
+never one global row array, so no rank pads its shard.
+
+Not ported yet, raising NotImplementedError: ``fit_gbdt_elastic`` (ROADMAP
+item 13b).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import NamedTuple, Optional
@@ -56,6 +66,7 @@ import torch
 from ... import telemetry
 from ...core.utils import get_logger
 from ...ops import gbdt_kernels as gk
+from ...telemetry.tracer import _NOOP_SPAN
 
 # boosting-loop telemetry (no-ops unless MMLSPARK_TPU_TELEMETRY=1); the
 # spans wait for the step's result, so enabled traces show device time
@@ -106,8 +117,8 @@ class GBDTParams(NamedTuple):
     hist_impl: str = "auto"   # auto | mxu | compare | segment | pallas
                               # (auto = the node-histogram kernel on CUDA,
                               # the compare hybrid on the CPU)
-    # LightGBM tree_learner: on one card every fit is serial (the
-    # distributed learners wait for the parallel/ port, ROADMAP item 12b)
+    # LightGBM tree_learner, used with a mesh (no mesh: serial); auto
+    # runs the data learner
     tree_learner: str = "data"      # data | feature | auto | serial
     num_leaves: int = 0             # > 0: leaf-wise growth (leafwise.py)
     categorical_feature: tuple = ()
@@ -314,10 +325,34 @@ def _best_splits(hg, hh, feat_mask, n_bins: int, lambda_l2, lambda_l1,
             (best % n_bins).to(torch.int32))
 
 
-def _grow_tree(bins, bins_t, g, h, feat_mask, depth: int, n_bins: int,
-               lambda_l2, lambda_l1, min_child_weight, min_split_gain,
-               hist_impl: str):
-    """One level-wise tree. Returns (feature (2^depth-1,), threshold
+class AllReduce:
+    """The data-parallel learner's collective: the elementwise sum of
+    same-shaped float32 tensors over ``group`` (the mesh's ``data`` axis),
+    each rank's partial in, the same sum out on every rank. The tensors go
+    as one stacked buffer, so a call is one ``all_reduce``. The sum stays
+    on the device; under NCCL it runs on the collective stream, which the
+    call orders after the current stream's work (the histogram kernels)
+    and the current stream after it. A group of one rank still runs it
+    (the identity)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __call__(self, *ts):
+        buf = torch.stack(ts)
+        torch.distributed.all_reduce(buf, group=self.group)
+        return tuple(buf.unbind(0))
+
+
+def _grow_tree(bins, g, h, depth: int, n_bins: int, candidates,
+               lambda_l2, lambda_l1, min_split_gain, hist_impl: str,
+               leaf_reduce=None):
+    """One level-wise tree, the scaffolding every tree_learner shares.
+    ``bins`` (n, d) is what this rank routes its rows with (every feature);
+    ``candidates(node, n_nodes) -> (best_gain, bf, bb)`` builds each
+    node's split candidates (each learner's histograms and collective
+    live there); ``leaf_reduce`` sums the leaf grad/hess over the ranks
+    when rows are sharded. Returns (feature (2^depth-1,), threshold
     (2^depth-1,) with n_bins marking "no split", leaf (2^depth,), node (n,)
     — each training row's leaf, so the boosting loop's raw update is a
     table gather)."""
@@ -329,11 +364,7 @@ def _grow_tree(bins, bins_t, g, h, feat_mask, depth: int, n_bins: int,
                          device=dev)
     for level in range(depth):
         n_nodes = 2 ** level
-        hg, hh = _histograms(bins, bins_t, g, h, node, n_nodes, n_bins,
-                             hist_impl)
-        best_gain, bf, bb = _best_splits(hg, hh, feat_mask, n_bins,
-                                         lambda_l2, lambda_l1,
-                                         min_child_weight)
+        best_gain, bf, bb = candidates(node, n_nodes)
         # nodes with no usable split route everything left (thr = n_bins)
         use = best_gain > min_split_gain
         bf = torch.where(use, bf, 0)
@@ -346,6 +377,8 @@ def _grow_tree(bins, bins_t, g, h, feat_mask, depth: int, n_bins: int,
         go_right = vals.to(torch.int32) > bb[nl]
         node = node * 2 + go_right.to(torch.int32)
     lg, lh = gk.node_sums(node, g, h, 2 ** depth, impl=hist_impl)
+    if leaf_reduce is not None:
+        lg, lh = leaf_reduce(lg, lh)
     leaf = -_soft(lg, lambda_l1) / (lh + lambda_l2)
     return feat_arr, thr_arr, leaf, node
 
@@ -353,26 +386,129 @@ def _grow_tree(bins, bins_t, g, h, feat_mask, depth: int, n_bins: int,
 def _build_tree_impl(bins, bins_t, grad, hess, row_mask, feat_mask,
                      depth: int, n_bins: int, lambda_l2, lambda_l1,
                      min_child_weight, min_split_gain,
-                     hist_impl: str = "segment"):
+                     hist_impl: str = "segment", reduce=None):
     """One level-wise tree for one output class; bagging through
-    ``row_mask`` (n,), feature fraction through ``feat_mask`` (d,)."""
-    return _grow_tree(bins, bins_t, grad * row_mask, hess * row_mask,
-                      feat_mask, depth, n_bins, lambda_l2, lambda_l1,
-                      min_child_weight, min_split_gain, hist_impl)
+    ``row_mask`` (n,), feature fraction through ``feat_mask`` (d,). With
+    ``reduce`` (an :class:`AllReduce` over the data axis: rows sharded)
+    every rank's histograms and leaf sums are summed over the ranks —
+    LightGBM's ``tree_learner=data`` allreduce ring
+    (TrainUtils.scala:141) — and split selection runs alike on every
+    rank."""
+    g = grad * row_mask
+    h = hess * row_mask
+
+    def candidates(node, n_nodes):
+        hg, hh = _histograms(bins, bins_t, g, h, node, n_nodes, n_bins,
+                             hist_impl)
+        if reduce is not None:
+            hg, hh = reduce(hg, hh)
+        return _best_splits(hg, hh, feat_mask, n_bins, lambda_l2,
+                            lambda_l1, min_child_weight)
+
+    return _grow_tree(bins, g, h, depth, n_bins, candidates, lambda_l2,
+                      lambda_l1, min_split_gain, hist_impl,
+                      leaf_reduce=reduce)
+
+
+def _build_tree_fp(bins, bins_t, grad, hess, row_mask, feat_mask, *,
+                   depth: int, n_bins: int, d_local: int, rank: int,
+                   n_dev: int, group, lambda_l2, lambda_l1,
+                   min_child_weight, min_split_gain,
+                   hist_impl: str = "segment"):
+    """Feature-parallel tree build (LightGBM ``tree_learner=feature``).
+
+    Every rank holds the whole row set (as LightGBM's feature-parallel
+    workers each keep the whole dataset) but builds histograms only for
+    its own slice of ``d_local`` features; the per-node best splits are
+    all-gathered as (gain, feature, bin) triples and the winner is picked
+    alike everywhere (ties to the lowest rank, as ``jnp.argmax`` picks),
+    so only the triples cross ranks. Routing and the leaf sums are local:
+    every rank has every row and feature.
+
+    bins (n, d_pad) and bins_t (d_pad, n); feat_mask (d_pad,) with the
+    padding zeroed."""
+    off = rank * d_local
+    lbins = bins[:, off:off + d_local]
+    lbins_t = bins_t[off:off + d_local]
+    lfm = feat_mask[off:off + d_local]
+    g = grad * row_mask
+    h = hess * row_mask
+
+    def candidates(node, n_nodes):
+        hg, hh = _histograms(lbins, lbins_t, g, h, node, n_nodes, n_bins,
+                             hist_impl)
+        lgain, lbf, lbb = _best_splits(hg, hh, lfm, n_bins, lambda_l2,
+                                       lambda_l1, min_child_weight)
+        # local slice index -> global feature id; float32 holds the ids
+        # and bins exactly
+        mine = torch.stack([lgain, (lbf + off).float(), lbb.float()])
+        parts = [mine]
+        if group is not None:
+            parts = [torch.empty_like(mine) for _ in range(n_dev)]
+            torch.distributed.all_gather(parts, mine, group=group)
+        table = torch.stack(parts)              # (n_dev, 3, n_nodes)
+        win = torch.argmax(table[:, 0], dim=0)  # ties -> lowest rank
+        best = table.gather(0, win[None, None, :].expand(1, 3, n_nodes))[0]
+        return (best[0], best[1].to(torch.int32), best[2].to(torch.int32))
+
+    return _grow_tree(bins, g, h, depth, n_bins, candidates, lambda_l2,
+                      lambda_l1, min_split_gain, hist_impl)
+
+
+def _per_class(one, grad, hess):
+    """``one(g, h)`` for each class column of grad/hess (K = 1 except
+    multiclass), each output stacked over the class axis."""
+    builds = [one(grad[:, k], hess[:, k]) for k in range(grad.shape[1])]
+    return tuple(torch.stack(parts) for parts in zip(*builds))
 
 
 def _build_tree_multi(bins, bins_t, grad, hess, row_mask, feat_mask, *,
                       depth: int, n_bins: int, lambda_l2, lambda_l1,
                       min_child_weight, min_split_gain,
-                      hist_impl: str = "segment"):
-    """K trees per boosting iteration over the class axis of grad/hess,
-    stacked: (feature (K, .), threshold, leaf, node (K, n))."""
-    builds = [_build_tree_impl(bins, bins_t, grad[:, k], hess[:, k],
-                               row_mask, feat_mask, depth, n_bins, lambda_l2,
-                               lambda_l1, min_child_weight, min_split_gain,
-                               hist_impl)
-              for k in range(grad.shape[1])]
-    return tuple(torch.stack(parts) for parts in zip(*builds))
+                      hist_impl: str = "segment", reduce=None):
+    """K level-wise trees per boosting iteration over the class axis of
+    grad/hess, stacked: (feature (K, .), threshold, leaf, node (K, n)).
+    ``reduce`` (a data-parallel fit's :class:`AllReduce`) runs inside each
+    class's build."""
+    return _per_class(
+        lambda g, h: _build_tree_impl(
+            bins, bins_t, g, h, row_mask, feat_mask, depth, n_bins,
+            lambda_l2, lambda_l1, min_child_weight, min_split_gain,
+            hist_impl, reduce=reduce), grad, hess)
+
+
+def make_feature_builder(mesh, *, depth: int, n_bins: int, d_pad: int,
+                         lambda_l2=1.0, lambda_l1=0.0, min_child_weight=1e-3,
+                         min_split_gain=0.0, hist_impl: str = "segment"):
+    """The feature-parallel level-wise builder of a mesh
+    (``tree_learner="feature"``): every rank holds every row, histogram
+    work splits by feature slice of the ``d_pad`` (a multiple of the
+    ``data`` axis) padded features, and split candidates are all-gathered
+    over the ``data`` group. The returned fn matches
+    ``_build_tree_multi``: (bins, bins_t, grad (n, K), hess, row_mask,
+    feat_mask) -> (f, t, leaf, node) stacked over the class axis, the
+    class loop running on every rank with its collectives inside each
+    class's build."""
+    group = mesh.group("data")
+    n_dev = mesh.axis_size("data")
+    if d_pad % n_dev:
+        raise ValueError(f"d_pad ({d_pad}) must be a multiple of the data "
+                         f"axis ({n_dev})")
+    if group is None and n_dev > 1:
+        raise ValueError("a feature-parallel mesh of several ranks "
+                         "needs a process group")
+    rank = mesh.axis_index("data")
+
+    def build(bins, bins_t, grad, hess, row_mask, feat_mask):
+        return _per_class(
+            lambda g, h: _build_tree_fp(
+                bins, bins_t, g, h, row_mask, feat_mask, depth=depth,
+                n_bins=n_bins, d_local=d_pad // n_dev, rank=rank,
+                n_dev=n_dev, group=group, lambda_l2=lambda_l2,
+                lambda_l1=lambda_l1, min_child_weight=min_child_weight,
+                min_split_gain=min_split_gain, hist_impl=hist_impl),
+            grad, hess)
+    return build
 
 
 def _gather_tree_contrib(lv, node):
@@ -382,44 +518,37 @@ def _gather_tree_contrib(lv, node):
                        dim=1)
 
 
-def _boost_step_level(bins, bins_t, raw, y, row_mask, feat_mask, lr, alpha,
-                      *, depth: int, n_bins: int, lambda_l2, lambda_l1,
-                      min_child_weight, min_split_gain, hist_impl: str,
-                      objective: str, num_class: int, update_raw: bool):
-    """One serial boosting iteration: gradients, the tree build and the
-    training-raw update (``update_raw=False``, rf mode, keeps raw fixed)."""
-    g, h = _grad_hess(raw, y, objective, num_class, alpha)
-    f, t, lv, node = _build_tree_multi(
-        bins, bins_t, g, h, row_mask, feat_mask, depth=depth, n_bins=n_bins,
-        lambda_l2=lambda_l2, lambda_l1=lambda_l1,
-        min_child_weight=min_child_weight, min_split_gain=min_split_gain,
-        hist_impl=hist_impl)
-    lv = lv * lr
-    if update_raw:
-        raw = raw + _gather_tree_contrib(lv, node)
-    return raw, f, t, lv, node
+def _span(on: bool, name: str, **attrs):
+    return telemetry.trace.span(name, **attrs) if on else _NOOP_SPAN
 
 
-def _boost_step_leafwise(bins, bins_t, raw, y, row_mask, feat_mask,
-                         cat_feats, lr, alpha, *, num_leaves: int,
-                         n_bins: int, lambda_l2, lambda_l1, min_child_weight,
-                         min_split_gain, cat_smooth, max_depth: int,
-                         hist_impl: str, has_cats: bool, objective: str,
-                         num_class: int, update_raw: bool):
-    """Leaf-wise twin of _boost_step_level: gradients, the K trees and the
-    training-raw update from each row's final leaf."""
-    from .leafwise import build_tree_leafwise_multi
-    g, h = _grad_hess(raw, y, objective, num_class, alpha)
-    S, f, t, W, IC, lv, node = build_tree_leafwise_multi(
-        bins, bins_t, g, h, row_mask, feat_mask, cat_feats,
-        num_leaves=num_leaves, n_bins=n_bins, lambda_l2=lambda_l2,
-        lambda_l1=lambda_l1, min_child_weight=min_child_weight,
-        min_split_gain=min_split_gain, cat_smooth=cat_smooth,
-        max_depth=max_depth, hist_impl=hist_impl, has_cats=has_cats)
-    lv = lv * lr
-    if update_raw:
-        raw = raw + _gather_tree_contrib(lv, node)
-    return raw, S, f, t, W, IC, lv, node
+def _boost_step(build, bins, bins_t, raw, y, row_mask, feat_mask, lr, alpha,
+                *, objective: str, num_class: int, update_raw: bool,
+                it: int = 0, mode: str = "levelwise", sharded: bool = False):
+    """One boosting iteration: gradients, the K trees and the training-raw
+    update (``update_raw=False``, rf mode, keeps raw fixed). ``build``
+    (bins, bins_t, grad, hess, row_mask, feat_mask) returns the trees'
+    arrays ending in (leaf, node): ``_build_tree_multi``, the leaf-wise
+    ``build_tree_leafwise_multi`` or a ``make_feature_builder`` fn, any
+    collectives inside. Returns (raw, the trees' arrays with the leaf
+    scaled by ``lr``, node). A serial fit times the iteration as one span
+    ``gbdt/iter/step``, as the JAX engine's serial path does; a sharded
+    fit (``sharded``) times its parts as ``gbdt/iter/{grad,build,apply}``,
+    the collectives inside ``build``."""
+    with _span(not sharded, "gbdt/iter/step", tree=it, mode=mode) as step:
+        with _span(sharded, "gbdt/iter/grad", tree=it) as sp:
+            g, h = _grad_hess(raw, y, objective, num_class, alpha)
+            sp.set_sync(h)
+        with _span(sharded, "gbdt/iter/build", tree=it, mode=mode) as sp:
+            *tree, lv, node = build(bins, bins_t, g, h, row_mask, feat_mask)
+            sp.set_sync(node)
+        lv = lv * lr
+        if update_raw:
+            with _span(sharded, "gbdt/iter/apply", tree=it) as sp:
+                raw = raw + _gather_tree_contrib(lv, node)
+                sp.set_sync(raw)
+        step.set_sync((raw, lv))
+    return (raw, *tree, lv, node)
 
 
 def _predict_tree_t(bins_t, feature, threshold, leaf, depth: int):
@@ -523,41 +652,51 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
              eval_set: Optional[tuple] = None, elastic_ctx=None,
              binned: Optional[tuple] = None,
              device="cuda") -> TreeEnsemble:
-    """Train a boosted ensemble on one device (cuda unless the caller asks
-    for "cpu"): level-wise (a TreeEnsemble), or leaf-wise when
-    ``num_leaves > 0`` (a leafwise.LeafwiseEnsemble, with category-set
-    splits on ``categorical_feature``).
+    """Train a boosted ensemble: level-wise (a TreeEnsemble), or leaf-wise
+    when ``num_leaves > 0`` (a leafwise.LeafwiseEnsemble, with
+    category-set splits on ``categorical_feature``).
+
+    With no ``mesh`` the fit is serial on ``device`` (cuda unless the
+    caller asks for "cpu"). With a ``mesh`` (``parallel.mesh``) it runs the
+    sharded builders on the mesh's device (``cuda:LOCAL_RANK`` under
+    NCCL, the CPU under gloo; ``device`` must name the same kind) and
+    ``params.tree_learner`` picks the learner: "data" (and "auto") — this
+    rank's ``x`` is its own row shard, histograms and leaf sums are
+    all-reduced over the ``data`` axis, LightGBM's socket-allreduce ring;
+    "feature" — every rank passes the same whole ``x``, builds the
+    histograms of its own feature slice, and the split candidates are
+    all-gathered. In a world of more than one rank the bin edges and the
+    init score of a data fit come from a sample pooled over the ranks in
+    proportion to their real rows, per-row randomness (bagging, the
+    holdout) draws from ``seed + rank``, the feature mask from the shared
+    ``seed ^ 0x5EED`` stream, and the early-stopping loss is the
+    row-weighted mean over the ranks, so every rank grows the same trees.
 
     ``sample_weight`` (n,) masks or weights rows (weight 0 rows neither
     train nor enter the bin edges and the init score); ``eval_set=(x, y)``
     is the early-stopping holdout, else ``early_stopping_round > 0`` holds
     out a seeded fifth of the rows; ``binned=(bins, edges)`` supplies an
     already-binned (n, d) uint8 matrix (numpy or tensor) and its edges
-    (pass x=None). A ``mesh`` or ``elastic_ctx``, and a multi-process
-    run, raise NotImplementedError naming the ROADMAP item that ports
-    them."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded GBDT fits (tree_learner data/feature/auto over "
-            "several devices, level-wise or leaf-wise) wait for the "
-            "parallel/ port: ROADMAP.md Queue 1 item 12b")
+    (pass x=None; one process only). ``elastic_ctx`` raises
+    NotImplementedError naming the ROADMAP item that ports it."""
     if elastic_ctx is not None:
         raise NotImplementedError(
             "elastic boosted fits wait for the resilience/ elastic runtime: "
             "ROADMAP.md Queue 1 item 13b")
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process GBDT fits (level-wise or leaf-wise) wait for the "
-            "parallel/ port: ROADMAP.md Queue 1 item 12b")
+    dev = torch_device(device)
+    if mesh is not None and mesh.distributed:
+        if mesh.device.type != dev.type:
+            raise ValueError(
+                f"the fit's device {str(device)!r} is not the mesh's "
+                f"{mesh.device}: a sharded fit runs on its rank's device")
+        dev = mesh.device
     n, d = (binned[0].shape if binned is not None else x.shape)
     with telemetry.trace.span("gbdt/fit", rows=int(n), features=int(d),
                               objective=params.objective,
                               iterations=params.num_iterations):
-        return _fit_gbdt_impl(x, y, params, sample_weight=sample_weight,
-                              eval_set=eval_set, binned=binned,
-                              device=torch_device(device))
+        return _fit_gbdt_impl(x, y, params, mesh=mesh,
+                              sample_weight=sample_weight,
+                              eval_set=eval_set, binned=binned, device=dev)
 
 
 def fit_gbdt_elastic(*args, **kwargs):
@@ -566,8 +705,49 @@ def fit_gbdt_elastic(*args, **kwargs):
         "ROADMAP.md Queue 1 item 13b")
 
 
-def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
-                   binned, device: torch.device):
+def _pooled_edges_and_base(x, y, sample_weight, p: GBDTParams):
+    """A multi-process data fit's bin edges and init score, the same on
+    every rank: each rank contributes real rows in proportion to its real
+    shard size (an equal split would over-weight small shards against the
+    one-process fit), the samples are gathered, and the edges and the
+    score come from the pool (LightGBM's bin_construct_sample_cnt, split
+    across the fleet)."""
+    from ...parallel import dataplane
+    n = x.shape[0]
+    # sample indices first: masking or casting the whole shard would copy
+    # multi-GB transients to keep <= cap rows
+    cand = (np.arange(n) if sample_weight is None
+            else np.flatnonzero(sample_weight > 0))
+    cap = dataplane.proportional_sample_cap(len(cand), 200_000)
+    if len(cand) > cap:
+        cand = np.random.default_rng(p.seed).choice(cand, cap, replace=False)
+    pooled = dataplane.allgather_pyobj((x[cand].astype(np.float32),
+                                        y[cand].astype(np.float32)))
+    gx = np.concatenate([a for a, _ in pooled])
+    gy = np.concatenate([b for _, b in pooled])
+    return compute_bin_edges(gx, p.max_bin), _init_score(gy, p)
+
+
+def _check_replicated(x, y, sample_weight):
+    """A multi-process feature-parallel fit needs the same rows on every
+    rank (routing and the leaf sums are local): one gather of a digest."""
+    import hashlib
+
+    from ...parallel import dataplane
+    h = hashlib.sha256()
+    for a in (x, y, sample_weight):
+        if a is not None:
+            h.update(np.ascontiguousarray(a).tobytes())
+    if len(set(dataplane.allgather_pyobj(h.hexdigest()))) > 1:
+        raise ValueError(
+            "tree_learner='feature' over several ranks needs the same rows "
+            "on every rank (each builds the histograms of its feature "
+            "slice over all rows); shard rows with tree_learner='data'")
+
+
+def _fit_gbdt_impl(x, y, params: GBDTParams, *, mesh, sample_weight,
+                   eval_set, binned, device: torch.device):
+    from ...parallel import mesh as meshlib
     p = params
     if binned is not None:
         if eval_set is not None:
@@ -588,6 +768,9 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     if not 2 <= p.max_bin <= 256:
         raise ValueError(f"max_bin must be in [2, 256] (uint8 bin ids; "
                          f"LightGBM's own ceiling is 255), got {p.max_bin}")
+    tree_learner = p.tree_learner if mesh is not None else "serial"
+    if tree_learner == "serial":
+        mesh = None
     leafwise = p.num_leaves > 0
     if leafwise and not 2 <= p.num_leaves <= 4096:
         raise ValueError(f"num_leaves must be in [2, 4096], got {p.num_leaves}")
@@ -599,6 +782,24 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     if p.categorical_feature and not leafwise:
         raise ValueError("categorical_feature requires leaf-wise growth "
                          "(set num_leaves > 0)")
+    if mesh is not None and any(s != 1 for a, s in mesh.shape.items()
+                                if a != "data"):
+        raise ValueError(f"GBDT fits shard over the mesh's data axis only; "
+                         f"its other axes must be 1, got {mesh.shape}")
+    nproc = meshlib.effective_process_count()
+    if binned is not None and nproc > 1:
+        raise ValueError(
+            "binned fits are single-process (fit-side pipeline fusion); "
+            "multi-process fits pool bin edges from raw row shards")
+    if nproc > 1 and tree_learner == "serial":
+        raise ValueError(
+            "multi-process fits need a mesh and tree_learner=data|auto "
+            "(rows sharded over the ranks) or feature (every rank holds "
+            "every row), got a serial fit")
+    # a data fit's rows are this rank's shard; a feature fit's are all rows
+    row_sharded = nproc > 1 and tree_learner != "feature"
+    if nproc > 1 and tree_learner == "feature":
+        _check_replicated(x, y, sample_weight)
     cat_arr = np.zeros(d, dtype=bool)
     for j in p.categorical_feature:
         if not 0 <= j < d:
@@ -632,8 +833,12 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
         hist_impl = "mxu" if device.type == "cuda" else "compare"
     # global statistics (bin edges, init score) come from real rows only
     real = slice(None) if sample_weight is None else sample_weight > 0
+    base = None
     if binned is None:
-        edges = compute_bin_edges(x[real], p.max_bin)
+        if row_sharded:
+            edges, base = _pooled_edges_and_base(x, y, sample_weight, p)
+        else:
+            edges = compute_bin_edges(x[real], p.max_bin)
         with _m_bin_time.time(), telemetry.trace.span(
                 "gbdt/bin", rows=n, features=d) as sp:
             bins = bin_data_auto(x, edges, cat_bins, p.max_bin, device)
@@ -641,15 +846,55 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     else:
         bins = torch.as_tensor(np.asarray(bins_in) if not isinstance(
             bins_in, torch.Tensor) else bins_in).to(device, torch.uint8)
+    d_pad = d
+    if tree_learner == "feature":
+        # pad the feature axis to a multiple of the ranks; padded columns
+        # carry feat_mask 0, so they never win a split
+        n_dev = mesh.axis_size("data")
+        d_pad = -(-d // n_dev) * n_dev
+        if d_pad != d:
+            bins = torch.cat([bins, bins.new_zeros((n, d_pad - d))], dim=1)
     bins_t = bins.T.contiguous()              # once per fit, for the kernel
-    base = _init_score(y[real], p)
+    if base is None:
+        base = _init_score(y[real], p)
     raw = torch.from_numpy(np.broadcast_to(base[None, :], (n, K)).astype(
         np.float32)).to(device)
     yj = torch.from_numpy(np.asarray(y, np.float32)).to(device)
 
-    # per-row randomness (bagging, holdout) and the feature mask draw from
-    # separate streams, seeded as in the JAX engine
-    rng = np.random.default_rng(p.seed)
+    group = mesh.group("data") if mesh is not None else None
+    reduce = (AllReduce(group)
+              if group is not None and tree_learner != "feature" else None)
+    if leafwise:
+        from . import leafwise as lw
+        cat_t = torch.from_numpy(cat_arr.astype(np.float32)).to(device)
+        build = functools.partial(
+            lw.build_tree_leafwise_multi, cat_feats=cat_t,
+            num_leaves=p.num_leaves, n_bins=p.max_bin, lambda_l2=p.lambda_l2,
+            lambda_l1=p.lambda_l1, min_child_weight=p.min_child_weight,
+            min_split_gain=p.min_split_gain, cat_smooth=p.cat_smooth,
+            max_depth=max(0, p.max_depth),     # 0 or -1 = uncapped
+            hist_impl=hist_impl, has_cats=has_cats, reduce=reduce)
+    elif tree_learner == "feature":
+        build = make_feature_builder(
+            mesh, depth=p.max_depth, n_bins=p.max_bin, d_pad=d_pad,
+            lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+            min_child_weight=p.min_child_weight,
+            min_split_gain=p.min_split_gain, hist_impl=hist_impl)
+    else:
+        # serial, data, and "auto" (XLA's auto-SPMD in the JAX engine; the
+        # data-parallel builder here)
+        build = functools.partial(
+            _build_tree_multi, depth=p.max_depth, n_bins=p.max_bin,
+            lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
+            min_child_weight=p.min_child_weight,
+            min_split_gain=p.min_split_gain, hist_impl=hist_impl,
+            reduce=reduce)
+
+    # per-row randomness (bagging, holdout) is rank-local data and differs
+    # between the ranks of a data fit; the feature mask is replicated and
+    # must be the same everywhere — separate streams, as in the JAX engine
+    rng = np.random.default_rng(
+        p.seed + (meshlib.process_index() if row_sharded else 0))
     feat_rng = np.random.default_rng(p.seed ^ 0x5EED)
     feats, thrs, leaves = [], [], []
     best_loss, since_best, best_iter = np.inf, 0, None
@@ -684,13 +929,10 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
     # when they change, without waiting for the card (_to_device), so the
     # host queues the next iteration while the card runs this one
     rm = None
-    fm = (None if p.feature_fraction < 1.0
-          else _to_device(np.ones(d, dtype=np.float32), device))
+    fm = (None if p.feature_fraction < 1.0 else _to_device(
+        np.pad(np.ones(d, dtype=np.float32), (0, d_pad - d)), device))
     lr_eff = 1.0 if is_rf else p.learning_rate
-    if leafwise:
-        from . import leafwise as lw
-        cat_t = torch.from_numpy(cat_arr.astype(np.float32)).to(device)
-        lw_depth = max(0, p.max_depth)     # 0 or -1 = uncapped (LightGBM)
+    mode = "leafwise" if leafwise else "levelwise"
     for it in range(p.num_iterations):
         t_iter = time.perf_counter() if telemetry.enabled() else 0.0
         if bagging:
@@ -708,35 +950,24 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
             keep = feat_rng.random(d) < p.feature_fraction
             if not keep.any():
                 keep[feat_rng.integers(0, d)] = True
-            fm = _to_device(keep.astype(np.float32), device)
-        with telemetry.trace.span(
-                "gbdt/iter/step", tree=it,
-                mode="leafwise" if leafwise else "levelwise") as sp:
-            if leafwise:
-                raw, S, f, t, W, IC, lv, _ = _boost_step_leafwise(
-                    bins, bins_t, raw, yj, rm, fm, cat_t, lr_eff, p.alpha,
-                    num_leaves=p.num_leaves, n_bins=p.max_bin,
-                    lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
-                    min_child_weight=p.min_child_weight,
-                    min_split_gain=p.min_split_gain,
-                    cat_smooth=p.cat_smooth, max_depth=lw_depth,
-                    hist_impl=hist_impl, has_cats=has_cats,
-                    objective=p.objective, num_class=K,
-                    update_raw=not is_rf)
-                feats.append((S, f, t, W, IC))
-            else:
-                raw, f, t, lv, _ = _boost_step_level(
-                    bins, bins_t, raw, yj, rm, fm,
-                    lr_eff, p.alpha, depth=p.max_depth, n_bins=p.max_bin,
-                    lambda_l2=p.lambda_l2, lambda_l1=p.lambda_l1,
-                    min_child_weight=p.min_child_weight,
-                    min_split_gain=p.min_split_gain, hist_impl=hist_impl,
-                    objective=p.objective, num_class=K,
-                    update_raw=not is_rf)
-                feats.append(f)
-                thrs.append(t)
-            leaves.append(lv)
-            sp.set_sync((raw, lv))
+            fm = _to_device(np.pad(keep.astype(np.float32), (0, d_pad - d)),
+                            device)
+        # rf leaves stay unscaled here; the 1/T average is applied at the
+        # end over the forest's actual size
+        raw, *tree, lv, _ = _boost_step(
+            build, bins, bins_t, raw, yj, rm, fm, lr_eff, p.alpha,
+            objective=p.objective, num_class=K, update_raw=not is_rf, it=it,
+            mode=mode, sharded=mesh is not None)
+        if leafwise:
+            S, f, t, W, IC = tree
+        else:
+            f, t = tree
+        if leafwise:
+            feats.append((S, f, t, W, IC))
+        else:
+            feats.append(f)
+            thrs.append(t)
+        leaves.append(lv)
         if telemetry.enabled():
             _m_iters.inc()
             _m_iter_time.observe(time.perf_counter() - t_iter)
@@ -757,6 +988,14 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, sample_weight, eval_set,
             cur = float(_loss(raw_val, y_val, p.objective, p.alpha))
             if telemetry.enabled():
                 _m_eval_time.observe(time.perf_counter() - t_eval)
+            if row_sharded:
+                # the stop decision must be the same on every rank: the
+                # row-weighted mean of the ranks' validation losses
+                from ...parallel import dataplane
+                m = len(y_val)
+                tot = dataplane.allreduce_sum(
+                    np.array([cur * m if m else 0.0, float(m)]))
+                cur = float(tot[0] / max(tot[1], 1.0))
             if cur < best_loss - 1e-9:
                 best_loss, since_best, best_iter = cur, 0, it + 1
             else:

@@ -35,8 +35,11 @@ is kept as a 256-bit mask per split. On the device the mask is 8 int64
 words each holding 32 bits (torch's uint32 has few kernels); the fitted
 state carries them as uint32, as the JAX package's does.
 
-Not ported: the mesh-sharded builder (``make_sharded_builder_lw``), which
-waits for the GBDT half of the parallel/ port (ROADMAP item 12b).
+Data-parallel fits pass ``build_tree_leafwise_multi`` a ``reduce`` (an
+``engine.AllReduce`` over the mesh's ``data`` group): each rank grows from
+its own rows, and every round's two-leaf histograms and the final leaf
+sums are all-reduced, so every rank picks the same splits (categorical set
+splits included).
 """
 
 from __future__ import annotations
@@ -186,10 +189,11 @@ def grow_tree_leafwise(bins, bins_t, g, h, *, num_leaves: int, n_bins: int,
                        cat_feats, feat_mask, lambda_l2, lambda_l1,
                        min_child_weight, min_split_gain, cat_smooth: float,
                        max_depth: int = 0, hist_impl: str = "segment",
-                       has_cats: bool = True):
+                       has_cats: bool = True, reduce=None):
     """One leaf-wise tree. bins (n, d) uint8 and bins_t its (d, n)
     transpose; g/h (n,) float32 (already masked); cat_feats/feat_mask (d,)
-    float32 tensors.
+    float32 tensors. ``reduce`` (an ``engine.AllReduce``, rows sharded)
+    sums each round's histograms and the leaf sums over the ranks.
 
     Returns (split_leaf (L-1,) int32, feature (L-1,) int32, threshold (L-1,)
     int32, cat_bitset (L-1, CAT_WORDS) int64, is_cat (L-1,) bool, leaf (L,)
@@ -213,7 +217,10 @@ def grow_tree_leafwise(bins, bins_t, g, h, *, num_leaves: int, n_bins: int,
             torch.int32)
         hg, hh = _histograms(bins, bins_t, g, h, ids, n_ids, n_bins,
                              hist_impl)
-        return _candidates_2(hg[:2], hh[:2], feat_mask, cat_feats, n_bins,
+        hg, hh = hg[:2], hh[:2]
+        if reduce is not None:
+            hg, hh = reduce(hg, hh)
+        return _candidates_2(hg, hh, feat_mask, cat_feats, n_bins,
                              lambda_l2, lambda_l1, min_child_weight,
                              cat_smooth, has_cats=has_cats)
 
@@ -261,6 +268,8 @@ def grow_tree_leafwise(bins, bins_t, g, h, *, num_leaves: int, n_bins: int,
         dep[r + 1] = childdep
 
     lg, lh = gk.node_sums(node, g, h, L, impl=hist_impl)
+    if reduce is not None:
+        lg, lh = reduce(lg, lh)
     leaf = -_soft(lg, lambda_l1) / (lh + lambda_l2)
     S, F, T, W, IC = (torch.stack(parts) for parts in zip(*recs))
     return (S.to(torch.int32), F.to(torch.int32), T.to(torch.int32), W, IC,
@@ -271,7 +280,7 @@ def build_tree_leafwise_multi(bins, bins_t, grad, hess, row_mask, feat_mask,
                               cat_feats, *, num_leaves, n_bins, lambda_l2,
                               lambda_l1, min_child_weight, min_split_gain,
                               cat_smooth, max_depth, hist_impl="segment",
-                              has_cats=True):
+                              has_cats=True, reduce=None):
     """K leaf-wise trees per boosting iteration over the class axis of
     grad/hess (K = 1 except multiclass), stacked: (split_leaf (K, L-1),
     feature, threshold, cat_bitset (K, L-1, CAT_WORDS), is_cat, leaf
@@ -282,7 +291,7 @@ def build_tree_leafwise_multi(bins, bins_t, grad, hess, row_mask, feat_mask,
         feat_mask=feat_mask, lambda_l2=lambda_l2, lambda_l1=lambda_l1,
         min_child_weight=min_child_weight, min_split_gain=min_split_gain,
         cat_smooth=cat_smooth, max_depth=max_depth, hist_impl=hist_impl,
-        has_cats=has_cats) for k in range(grad.shape[1])]
+        has_cats=has_cats, reduce=reduce) for k in range(grad.shape[1])]
     return tuple(torch.stack(parts) for parts in zip(*builds))
 
 

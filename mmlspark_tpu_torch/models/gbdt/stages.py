@@ -4,18 +4,28 @@ port of ``mmlspark_tpu/models/gbdt/stages.py``.
 API parity with the reference (lightgbm/.../LightGBMClassifier.scala:32-83,
 LightGBMRegressor.scala:34, TrainParams.scala) and with the JAX stages: the
 same Params, plus ``device`` ("cuda" by default, raising without a card;
-"cpu" on request). One card is one serial learner, so ``parallelism`` is
-accepted and every fit runs serial, as the JAX stages do on one device.
+"cpu" on request).
+
+Distributed fits: a rank is a device, so a world of one rank fits serially
+and, in a world of more than one rank (``parallel.distributed``), every fit
+runs the data-parallel program over a mesh of the whole world, each rank
+passing its own row shard — the reference's per-partition workers
+(LightGBMClassifier.scala:35-47). Every rank then derives the same fit:
+the feature plan of a wide sparse input from fleet-summed document
+frequencies and a pooled row sample, the growth policy from the global
+row count, the objective from the fleet's label set, and the whole fit
+runs under ``collective_fit_lock`` so a tuner's threads cannot interleave
+its collectives. Inside ``local_fit_mode`` a fit stays serial.
 
 Ported: level-wise (depthwise) and leaf-wise fits (the ``growthPolicy``
 default below 262144 rows, with categorical slots as category-set splits)
 and their models, dense and wide-sparse features (the top-k columns, and
 under leaf-wise growth the tail bundled into categorical composites by
 EFB, ``efb.py``), save/load, and JAX-fitted ``boosterState`` dicts of
-either kind, which the models take as they are. Not yet, each raising
-NotImplementedError: ``elasticConfig`` (ROADMAP item 13b); multi-process
-fits wait for the GBDT half of the parallel/ port (item 12b). The growthPolicy='auto'
-reroute counts in ``mmlspark_gbdt_auto_depthwise_reroutes``.
+either kind, which the models take as they are. Not yet, raising
+NotImplementedError: ``elasticConfig`` (ROADMAP item 13b). The
+growthPolicy='auto' reroute counts in
+``mmlspark_gbdt_auto_depthwise_reroutes``.
 
 Pipeline fusion (core/capture.py): a level-wise model's ``capture`` is the
 dense traced walk (``engine.traced_raw_levelwise``, binning included) in
@@ -40,6 +50,7 @@ from ...core.pipeline import Estimator, Model
 from ...core.schema import MML_TAG, SparkSchema
 from ...core.utils import get_logger, object_column
 from ...ops.text_ops import rows_to_matrix
+from ...parallel import mesh as meshlib
 from . import engine
 from .leafwise import LeafwiseEnsemble
 
@@ -82,9 +93,13 @@ class _BoosterParams:
     earlyStoppingRound = IntParam("stop if no improvement for k rounds (0=off)",
                                   default=0)
     parallelism = StringParam(
-        "tree_learner (TrainParams.scala): data_parallel, "
-        "feature_parallel, voting_parallel (maps to data_parallel) or "
-        "serial; on one card every fit is serial", default="data_parallel",
+        "tree_learner (TrainParams.scala): data_parallel = rows sharded "
+        "over the ranks + histogram all-reduce; feature_parallel = "
+        "histogram work split by feature, split candidates all-gathered "
+        "(fit_gbdt with a mesh; the stages shard rows, so a multi-rank "
+        "stage fit needs data_parallel); voting_parallel maps to "
+        "data_parallel; serial = one device. A world of one rank fits "
+        "serially", default="data_parallel",
         choices=("data_parallel", "feature_parallel", "voting_parallel",
                  "serial"))
     seed = IntParam("random seed", default=0)
@@ -177,9 +192,102 @@ class _BoosterParams:
                 "serial": "serial"}[self.getOrDefault("parallelism")]
 
     def _mesh(self, n_rows: int = None):
-        """One card: every fit is the serial program (the JAX stages'
-        single-device case)."""
-        return None
+        """The mesh a fit runs on. Inside ``local_fit_mode`` (a tuner's
+        trial-to-rank search) the fit stays local and collective-free:
+        None. A world of more than one rank always runs the collective
+        program, whatever the local shard's size — the JAX stages'
+        small-fit heuristic would diverge on per-rank shard sizes, and
+        every rank must make the same choice. A world of one rank is the
+        JAX stages' single-device case: None. (A rank is a device, so the
+        JAX stages' one-process multi-device choice does not arise.)"""
+        if meshlib.in_local_fit() or meshlib.effective_process_count() < 2:
+            return None
+        return meshlib.create_mesh()
+
+
+def _fleet_fit_guard():
+    """One critical section for a whole multi-rank fit (the feature-plan
+    collectives and the engine fit): separate lock acquisitions would let
+    another thread's collectives land between them in a different order
+    on each rank and pair cross-purpose. One-rank fits skip it: the
+    tuner's thread pool depends on concurrent serial fits."""
+    import contextlib
+    if meshlib.effective_process_count() > 1:
+        return meshlib.collective_fit_lock
+    return contextlib.nullcontext()
+
+
+def _fleet_doc_freq(mat_csc):
+    """Per-column nonzero counts, summed over every rank's shard in a
+    multi-rank fit. Feature selection and EFB planning must key off
+    fleet-wide statistics: a plan from the local shard would give each
+    rank a different column -> feature mapping (a different d, even)
+    under trees every rank grows alike. Callers guarantee every rank
+    reaches this together (_check_fleet_features)."""
+    doc_freq = np.diff(mat_csc.indptr)
+    if meshlib.effective_process_count() > 1:
+        from ...parallel import dataplane
+        doc_freq = dataplane.allreduce_sum(doc_freq.astype(np.int64))
+    return doc_freq
+
+
+def _check_fleet_features(mat):
+    """The fleet-consistency gate of a multi-rank fit's feature matrix:
+    every later branch in _prepare_fit_features must be taken by every
+    rank together (their collectives would otherwise pair cross-purpose
+    and hang or corrupt), so the branch inputs (sparse or dense, width)
+    are checked fleet-wide here, in one collective every rank reaches."""
+    if meshlib.effective_process_count() == 1:
+        return
+    from ...parallel import dataplane
+    info = dataplane.allgather_pyobj(
+        (bool(hasattr(mat, "tocsc")), int(mat.shape[1])))
+    kinds = {k for k, _ in info}
+    widths = {w for _, w in info}
+    if len(widths) != 1:
+        raise ValueError(
+            f"sharded GBDT fit saw different feature widths per process: "
+            f"{sorted(widths)}; hash/assemble features with a fixed "
+            f"dimension before a fleet fit")
+    if len(kinds) != 1:
+        raise ValueError(
+            "sharded GBDT fit saw sparse feature rows on some processes "
+            "and dense on others; use one representation fleet-wide")
+
+
+#: rows in the fleet-pooled sample EFB planning reads
+_EFB_PLAN_SAMPLE_ROWS = 8192
+
+
+def _pooled_row_sample(mat_csr, seed: int):
+    """A fleet-pooled row sample of the sparse matrix (about
+    ``_EFB_PLAN_SAMPLE_ROWS`` rows), the same on every rank: each rank
+    contributes rows in proportion to its shard size (the engine's
+    pooled-edge trade). EFB planning needs global conflict
+    statistics: a plan from one shard's bitmaps under-counts conflicts
+    and packs bundles that destroy information fleet-wide."""
+    import scipy.sparse as sp
+
+    from ...parallel import dataplane
+    n = mat_csr.shape[0]
+    cap = dataplane.proportional_sample_cap(n, _EFB_PLAN_SAMPLE_ROWS)
+    local = mat_csr.tocsr()
+    if n > cap:
+        rows = np.sort(np.random.default_rng(
+            seed ^ (0x9E37 * (meshlib.process_index() + 1))).choice(
+                n, cap, replace=False))
+        local = local[rows]
+    parts = dataplane.allgather_pyobj(local)
+    return sp.vstack(parts, format="csr")
+
+
+def _global_rows(n_local: int) -> int:
+    """The fleet-wide row count: the auto growth policy must route every
+    rank alike, and shard sizes differ."""
+    if meshlib.effective_process_count() > 1:
+        from ...parallel import dataplane
+        return int(sum(dataplane.allgather_pyobj(int(n_local))))
+    return int(n_local)
 
 
 def _prepare_fit_features(stage, df):
@@ -187,21 +295,33 @@ def _prepare_fit_features(stage, df):
     bundle_cat_ids). Dense inputs pass through; wide sparse inputs keep the
     maxDenseFeatures densest columns numeric and, when the growth mode
     supports category-set splits, BUNDLE the tail into categorical
-    composites (EFB-lite, efb.py); otherwise the tail is dropped."""
+    composites (EFB-lite, efb.py); otherwise the tail is dropped.
+
+    Multi-rank fits select columns from fleet-summed document frequencies
+    and plan bundles over a fleet-pooled row sample, so every rank derives
+    the same feature mapping from the same global statistics."""
     mat = rows_to_matrix(df.col(stage.getFeaturesCol()))
     if hasattr(mat, "tocsc"):
         mat = mat.tocsc()
+    _check_fleet_features(mat)
+    # every condition below is a pure function of the params (the same on
+    # every rank) and the fleet-checked (kind, width): the ranks branch
+    # together
     cap = stage.getMaxDenseFeatures()
     # sparse-wide inputs signal EFB (categorical bundles) intent, which
     # needs leaf-wise growth — categorical=True keeps the auto policy
     # leaf-wise rather than routing large fits depthwise
     if hasattr(mat, "tocsc") and mat.shape[1] > cap \
-            and stage._effective_leafwise(n_rows=mat.shape[0],
+            and stage._effective_leafwise(n_rows=_global_rows(mat.shape[0]),
                                           categorical=True):
         from .efb import apply_bundles, plan_and_split
-        dense, bundles = plan_and_split(mat, cap,
+        seed = stage.getOrDefault("seed")
+        doc_freq = _fleet_doc_freq(mat)
+        plan_mat = (_pooled_row_sample(mat, seed).tocsc()
+                    if meshlib.effective_process_count() > 1 else mat)
+        dense, bundles = plan_and_split(plan_mat, cap,
                                         stage.getOrDefault("maxBin"),
-                                        stage.getOrDefault("seed"))
+                                        seed, doc_freq=doc_freq)
         xd = _densify(mat, dense)
         if not bundles:
             return xd, dense, None, ()
@@ -213,7 +333,9 @@ def _prepare_fit_features(stage, df):
         x = np.concatenate([xd, xb], axis=1)
         return (x, dense, bundles,
                 tuple(range(xd.shape[1], x.shape[1])))
-    sel = _select_features(mat, cap)
+    doc_freq = (_fleet_doc_freq(mat) if hasattr(mat, "tocsc")
+                and mat.shape[1] > cap else None)
+    sel = _select_features(mat, cap, doc_freq=doc_freq)
     return _densify(mat, sel), sel, None, ()
 
 
@@ -290,16 +412,29 @@ def _categorical_slots(df: DataFrame, feat_col: str, explicit, sel):
 
 def _fit_ensemble(params_holder, x, y, objective, num_class=1, alpha=0.9,
                   categorical=(), binned=None):
-    n_rows = int(binned[0].shape[0]) if binned is not None else x.shape[0]
+    """``binned=(bins, edges)`` is the fit-side pipeline-fusion form (one
+    process only: the fused hook declines multi-rank fits). In a
+    multi-rank world ``x`` is this rank's row shard, passed as it is: the
+    learners sum histograms, so shards need no padding to equal sizes."""
+    n_local = int(binned[0].shape[0]) if binned is not None else x.shape[0]
     p = params_holder._engine_params(objective, num_class, alpha, categorical,
-                                     n_rows=n_rows)
+                                     n_rows=_global_rows(n_local))
     if params_holder.getOrDefault("elasticConfig"):
         raise NotImplementedError(
             "elasticConfig waits for the resilience/ elastic runtime: "
             "ROADMAP.md Queue 1 item 13b")
-    return engine.fit_gbdt(x, y, p, mesh=params_holder._mesh(n_rows),
-                           binned=binned,
-                           device=params_holder.getOrDefault("device"))
+    mesh = params_holder._mesh(n_local)
+    device = params_holder.getOrDefault("device")
+    if mesh is None:
+        return engine.fit_gbdt(x, y, p, binned=binned, device=device)
+    if p.tree_learner not in ("data", "auto"):
+        raise ValueError(
+            "multi-process GBDT fits shard rows across processes and need "
+            "parallelism=data_parallel (the reference's per-partition "
+            "workers, LightGBMClassifier.scala:35-47); got "
+            f"{params_holder.getOrDefault('parallelism')!r}")
+    # the stage's fit holds collective_fit_lock here (_fleet_fit_guard)
+    return engine.fit_gbdt(x, y, p, mesh=mesh, binned=binned, device=device)
 
 
 def _fused_categorical_slots(plan, feat_col, explicit):
@@ -397,9 +532,7 @@ def _booster_fit_captured(stage, df, plan, finish):
 
     from ... import telemetry
     from ...core import capture as capturelib
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
+    if meshlib.effective_process_count() > 1:
         return None
     if stage.getOrDefault("elasticConfig"):
         return None
@@ -544,9 +677,17 @@ def _split_importances(state: dict, selection, bundles,
 
 
 def _check_labels(y) -> int:
+    """The number of classes of consecutive integer labels. In a
+    multi-rank fit the label set is the fleet's (a shard may lack a class,
+    and every rank must fit the same objective)."""
     classes = np.unique(y.astype(np.int64))
-    if not np.array_equal(classes, np.arange(len(classes))) or \
-            not np.allclose(y, y.astype(np.int64)):
+    integral = bool(np.allclose(y, y.astype(np.int64)))
+    if meshlib.effective_process_count() > 1:
+        from ...parallel import dataplane
+        parts = dataplane.allgather_pyobj((classes, integral))
+        classes = np.unique(np.concatenate([c for c, _ in parts]))
+        integral = all(i for _, i in parts)
+    if not np.array_equal(classes, np.arange(len(classes))) or not integral:
         raise ValueError(
             f"labels must be consecutive integers 0..K-1, got classes "
             f"{classes.tolist()}; index them first (e.g. ValueIndexer)")
@@ -686,16 +827,17 @@ class LightGBMClassifier(Estimator, HasFeaturesCol, HasLabelCol, _BoosterParams)
     """Binary/multiclass boosted trees (reference: LightGBMClassifier.scala:32)."""
 
     def fit(self, df: DataFrame) -> LightGBMClassificationModel:
-        x, sel, bundles, bundle_cats = _prepare_fit_features(self, df)
-        y = np.asarray(df.col(self.getLabelCol())).astype(np.float32)
-        num_class = _check_labels(y)
-        objective = "binary" if num_class <= 2 else "multiclass"
-        cats = _categorical_slots(df, self.getFeaturesCol(),
-                                  self.getCategoricalSlotIndexes(), sel)
-        ens = _fit_ensemble(
-            self, x, y, objective,
-            num_class=(num_class if objective == "multiclass" else 1),
-            categorical=tuple(cats) + bundle_cats)
+        with _fleet_fit_guard():
+            x, sel, bundles, bundle_cats = _prepare_fit_features(self, df)
+            y = np.asarray(df.col(self.getLabelCol())).astype(np.float32)
+            num_class = _check_labels(y)
+            objective = "binary" if num_class <= 2 else "multiclass"
+            cats = _categorical_slots(df, self.getFeaturesCol(),
+                                      self.getCategoricalSlotIndexes(), sel)
+            ens = _fit_ensemble(
+                self, x, y, objective,
+                num_class=(num_class if objective == "multiclass" else 1),
+                categorical=tuple(cats) + bundle_cats)
         return (LightGBMClassificationModel()
                 .setFeaturesCol(self.getFeaturesCol())
                 .setObjective(objective)
@@ -768,13 +910,14 @@ class LightGBMRegressor(Estimator, HasFeaturesCol, HasLabelCol, _BoosterParams):
     alpha = FloatParam("quantile level", default=0.9, min=0.0, max=1.0)
 
     def fit(self, df: DataFrame) -> LightGBMRegressionModel:
-        x, sel, bundles, bundle_cats = _prepare_fit_features(self, df)
-        y = np.asarray(df.col(self.getLabelCol())).astype(np.float32)
-        cats = _categorical_slots(df, self.getFeaturesCol(),
-                                  self.getCategoricalSlotIndexes(), sel)
-        ens = _fit_ensemble(self, x, y, self.getApplication(),
-                            alpha=self.getAlpha(),
-                            categorical=tuple(cats) + bundle_cats)
+        with _fleet_fit_guard():
+            x, sel, bundles, bundle_cats = _prepare_fit_features(self, df)
+            y = np.asarray(df.col(self.getLabelCol())).astype(np.float32)
+            cats = _categorical_slots(df, self.getFeaturesCol(),
+                                      self.getCategoricalSlotIndexes(), sel)
+            ens = _fit_ensemble(self, x, y, self.getApplication(),
+                                alpha=self.getAlpha(),
+                                categorical=tuple(cats) + bundle_cats)
         return (LightGBMRegressionModel()
                 .setFeaturesCol(self.getFeaturesCol())
                 .setObjective(self.getApplication())

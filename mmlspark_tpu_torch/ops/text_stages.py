@@ -3,9 +3,10 @@
 toggleable tokenize -> stopwords -> ngram -> hashingTF -> IDF chain fit as
 one stage. Host work on scipy CSR, as in the JAX package.
 
-Not ported yet: the fleet-wide IDF of a sharded frame (ROADMAP.md Queue 1
-item 12b); a ``parallel.dataplane.ShardedDataFrame`` fits as its local
-shard.
+A ``parallel.dataplane.ShardedDataFrame`` in a world of more than one rank
+fits the fleet-wide IDF: the document frequencies and the corpus size sum
+over every rank's shard in one collective, so every rank holds the same
+weights.
 """
 
 from __future__ import annotations
@@ -87,6 +88,21 @@ class TextFeaturizer(Estimator, _TextChainParams):
                      if k not in ("idfWeights",)})
         if self.getUseIDF():
             tf = _featurize_tokens(self, df.col(self.getInputCol()))
-            model.setIdfWeights(
-                text_ops.idf_weights(tf, self.getMinDocFreq()))
+            from ..parallel import dataplane
+            if dataplane.is_sharded(df):
+                # fleet-wide IDF: document frequencies and the corpus size
+                # sum across shards in one collective (Spark's IDF
+                # aggregates over the whole cluster the same way)
+                df_local = np.asarray((tf > 0).sum(axis=0)).ravel() \
+                    .astype(np.float64)
+                tot = dataplane.allreduce_sum(
+                    np.concatenate([[float(tf.shape[0])], df_local]))
+                m, dfreq = tot[0], tot[1:]
+                w = np.log((m + 1.0) / (dfreq + 1.0))
+                if self.getMinDocFreq() > 0:
+                    w = np.where(dfreq >= self.getMinDocFreq(), w, 0.0)
+                model.setIdfWeights(w.astype(np.float32))
+            else:
+                model.setIdfWeights(
+                    text_ops.idf_weights(tf, self.getMinDocFreq()))
         return model

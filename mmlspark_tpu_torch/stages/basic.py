@@ -14,9 +14,9 @@ DropColumns, SelectColumns, RenameColumn and FastVectorAssembler expose a
 ``capture`` (core/capture.py: their work as tensor code inside a fused
 pipeline segment); the host-only stages carry ``_uncapturable = True``.
 
-Not ported: ``ClassBalancer``'s fleet-wide class count merge over a
-sharded frame (ROADMAP.md Queue 1 item 12b): a sharded frame balances
-its local shard.
+``ClassBalancer`` over a sharded frame (``parallel.dataplane``) in a world
+of more than one rank weighs the fleet-wide class counts: every rank's
+counts are gathered once and summed, so every rank holds the same table.
 """
 
 from __future__ import annotations
@@ -139,6 +139,16 @@ class ClassBalancer(Estimator, HasInputCol, HasOutputCol):
     def fit(self, df: DataFrame) -> "ClassBalancerModel":
         col = df.col(self.getInputCol())
         values, counts = np.unique(col, return_counts=True)
+        from ..parallel import dataplane
+        if dataplane.is_sharded(df):
+            # fleet-wide class frequencies: merge each shard's histogram
+            totals: dict = {}
+            for part in dataplane.allgather_pyobj(
+                    dict(zip(values.tolist(), counts.tolist()))):
+                for v, n in part.items():
+                    totals[v] = totals.get(v, 0) + n
+            values = np.array(sorted(totals, key=str))
+            counts = np.array([totals[v] for v in values.tolist()])
         weights = counts.max() / counts.astype(np.float64)
         return (ClassBalancerModel()
                 .setInputCol(self.getInputCol())

@@ -8,10 +8,16 @@ pipeline-stages TextPreprocessor.scala:97); the port of
 Host numpy over the columnar frame, as in the JAX package.
 CleanMissingDataModel and DataConversion also expose a ``capture``
 (core/capture.py): their work as tensor code inside a fused pipeline
-segment, in device dtypes. Not ported: the sharded-frame branches of
-CleanMissingData and SummarizeData (the fleet-wide merges of ROADMAP.md
-Queue 1 item 12b): every statistic here is the exact one of the frame it
-is given (a sharded frame's local shard)."""
+segment, in device dtypes.
+
+A sharded frame (``parallel.dataplane``) in a world of more than one rank
+fits and summarizes fleet-wide, as the JAX package does: each rank
+computes mergeable per-column partials of its shard, one gather carries
+every column's partials, and every rank merges them alike. The means,
+counts, minima and maxima are exact; CleanMissingData's median and
+SummarizeData's percentiles come from a pooled per-shard sample (exact
+while every shard holds at most the sample cap), and the distinct count
+from a KMV sketch (exact below its size)."""
 
 from __future__ import annotations
 
@@ -34,23 +40,61 @@ class CleanMissingData(Estimator):
                                choices=("Mean", "Median", "Custom"))
     customValue = FloatParam("fill value for Custom mode", default=0.0)
 
+    #: per-shard sample cap for the distributed median (pooled-sample
+    #: approximation; exact distributed medians need a full value shuffle)
+    _MEDIAN_SAMPLE = 16384
+
     def fit(self, df: DataFrame) -> "CleanMissingDataModel":
+        from ..parallel import dataplane
+        sharded = dataplane.is_sharded(df)
         cols = list(self.getInputCols()) or [
             c for c in df.columns if df.col(c).dtype.kind == "f"]
         mode = self.getCleaningMode()
         fills = {}
+        partials = {}  # one fleet collective for all columns
         for c in cols:
             vals = df.col(c).astype(np.float64)
             ok = vals[~np.isnan(vals)]
             if mode == "Mean":
-                fills[c] = float(ok.mean()) if len(ok) else 0.0
+                if sharded:
+                    partials[c] = (float(ok.sum()), float(len(ok)))
+                else:
+                    fills[c] = float(ok.mean()) if len(ok) else 0.0
             elif mode == "Median":
-                fills[c] = float(np.median(ok)) if len(ok) else 0.0
+                if sharded:
+                    # pooled per-shard sample (approximate past
+                    # nprocs * cap values, exact below it)
+                    if len(ok) > self._MEDIAN_SAMPLE:
+                        ok = np.random.default_rng(0).choice(
+                            ok, self._MEDIAN_SAMPLE, replace=False)
+                    partials[c] = ok
+                else:
+                    fills[c] = float(np.median(ok)) if len(ok) else 0.0
             else:
                 fills[c] = self.getCustomValue()
+        if partials:
+            fills.update(self._merge_partials(
+                mode, dataplane.allgather_pyobj(partials)))
         outs = list(self.getOutputCols()) or cols
         return (CleanMissingDataModel().setFillValues(fills)
                 .setOutputCols(tuple(outs)).setInputCols(tuple(cols)))
+
+
+    @staticmethod
+    def _merge_partials(mode: str, gathered: list) -> dict:
+        """Every rank's per-column partials (rank order) -> the fill
+        values: the pooled mean from (sum, count) pairs, or the median of
+        the pooled samples."""
+        fills = {}
+        for c in gathered[0]:
+            if mode == "Mean":
+                s = sum(g[c][0] for g in gathered)
+                k = sum(g[c][1] for g in gathered)
+                fills[c] = s / k if k else 0.0
+            else:
+                pooled = np.concatenate([g[c] for g in gathered])
+                fills[c] = float(np.median(pooled)) if len(pooled) else 0.0
+        return fills
 
 
 class CleanMissingDataModel(Model):
@@ -187,8 +231,24 @@ class SummarizeData(Transformer):
     percentiles = BooleanParam("p25/p50/p75", default=True)
     errorThreshold = FloatParam("kept for parity", default=0.0)
 
-    def _local_stats(self, col: np.ndarray) -> dict:
-        """Per-column stat components (exact distincts and percentiles)."""
+    #: per-shard caps for the distributed path: pooled percentile sample,
+    #: and the KMV distinct-count sketch size (exact below it — Spark's own
+    #: summary uses approxCountDistinct, so approximate parity is parity)
+    _PCTL_SAMPLE = 16384
+    _KMV_K = 4096
+
+    @staticmethod
+    def _stable_hash(v) -> int:
+        """Process-independent 63-bit value hash (python's hash() is salted
+        per process, which would corrupt a cross-process sketch merge)."""
+        import hashlib
+        h = hashlib.blake2b(repr(v).encode(), digest_size=8).digest()
+        return int.from_bytes(h, "little") & 0x7FFFFFFFFFFFFFFF
+
+    def _local_stats(self, col: np.ndarray, sharded: bool = False) -> dict:
+        """Per-column stat components; mergeable across shards when
+        ``sharded`` (single-frame mode keeps exact distincts and
+        percentiles)."""
         numeric = col.dtype.kind in "bifu"
         s: dict = {"numeric": numeric, "n": float(len(col))}
         if numeric:
@@ -201,24 +261,82 @@ class SummarizeData(Transformer):
         if self.getCounts():  # distinct values are only worked out if asked
             uniq = (np.unique(ok).tolist() if numeric
                     else list({v for v in cells}))
-            s["distinct"] = float(len(uniq))
+            if sharded:
+                # distinct count: exact below the sketch size, else the KMV
+                # (k-minimum stable-hash values) sketch — merges by
+                # union+truncate
+                hashes = np.sort(np.array(
+                    [self._stable_hash(v) for v in uniq], dtype=np.uint64))
+                s["kmv"] = hashes[:self._KMV_K]
+                s["kmv_exact"] = len(hashes) <= self._KMV_K
+            else:
+                s["distinct"] = float(len(uniq))
         if numeric:
             s["ok_n"] = float(len(ok))
             s["sum"] = float(ok.sum())
+            s["sumsq"] = float((ok ** 2).sum())
             s["min"] = float(ok.min()) if len(ok) else np.inf
             s["max"] = float(ok.max()) if len(ok) else -np.inf
+            if sharded and len(ok) > self._PCTL_SAMPLE:
+                ok = np.random.default_rng(0).choice(
+                    ok, self._PCTL_SAMPLE, replace=False)
             s["sample"] = ok
         return s
 
+    @classmethod
+    def _merge_stats(cls, parts: list) -> dict:
+        """Every rank's components of one column (rank order) -> one set."""
+        out = dict(parts[0])
+        for p in parts[1:]:
+            out["n"] += p["n"]
+            out["missing"] += p["missing"]
+            if out["numeric"]:
+                out["ok_n"] += p["ok_n"]
+                out["sum"] += p["sum"]
+                out["sumsq"] += p["sumsq"]
+                out["min"] = min(out["min"], p["min"])
+                out["max"] = max(out["max"], p["max"])
+                out["sample"] = np.concatenate([out["sample"], p["sample"]])
+            if "kmv" in out:
+                out["kmv_exact"] = out["kmv_exact"] and p["kmv_exact"]
+                out["kmv"] = np.unique(np.concatenate(
+                    [out["kmv"], p["kmv"]]))
+        if "kmv" in out:
+            # truncating the union to k loses exactness once the pooled
+            # cardinality crosses k — the estimator takes over then
+            out["kmv_exact"] = (out["kmv_exact"]
+                                and len(out["kmv"]) <= cls._KMV_K)
+            out["kmv"] = out["kmv"][:cls._KMV_K]
+        return out
+
+    @classmethod
+    def _distinct_estimate(cls, s: dict) -> float:
+        if "distinct" in s:  # single-frame mode: exact
+            return s["distinct"]
+        kmv = s["kmv"]
+        if s["kmv_exact"] or len(kmv) < cls._KMV_K:
+            return float(len(kmv))
+        # KMV estimator: D ~= (k-1) / (kth smallest hash / hash space)
+        return float((cls._KMV_K - 1)
+                     / (float(kmv[-1]) / float(0x7FFFFFFFFFFFFFFF)))
+
     def transform(self, df: DataFrame) -> DataFrame:
+        from ..parallel import dataplane
+        sharded = dataplane.is_sharded(df)
+        local = {c: self._local_stats(df.col(c), sharded)
+                 for c in df.columns}
+        if sharded:  # one fleet collective for every column's components
+            gathered = dataplane.allgather_pyobj(local)
         rows = []
         for c in df.columns:
-            s = self._local_stats(df.col(c))
+            s = local[c]
+            if sharded:
+                s = self._merge_stats([g[c] for g in gathered])
             row = {"Feature": c}
             numeric = s["numeric"]
             if self.getCounts():
                 row["Count"] = s["n"]
-                row["Unique Value Count"] = s["distinct"]
+                row["Unique Value Count"] = self._distinct_estimate(s)
                 row["Missing Value Count"] = s["missing"]
             if self.getBasic():
                 ok_n = s.get("ok_n", 0.0) if numeric else 0.0
@@ -226,11 +344,15 @@ class SummarizeData(Transformer):
                 row["Mean"] = mean
                 if not (numeric and ok_n > 1):
                     row["Standard Deviation"] = np.nan
-                else:
-                    # exact two-pass std (the moment form cancels
-                    # catastrophically at large mean)
+                elif not sharded:
+                    # single frame: exact two-pass std (the moment form
+                    # below cancels catastrophically at large mean)
                     row["Standard Deviation"] = float(
                         np.std(s["sample"], ddof=1))
+                else:
+                    row["Standard Deviation"] = float(
+                        np.sqrt(max(0.0, (s["sumsq"] - ok_n * mean ** 2)
+                                    / (ok_n - 1))))
                 row["Min"] = s["min"] if numeric and ok_n else np.nan
                 row["Max"] = s["max"] if numeric and ok_n else np.nan
             if self.getPercentiles():

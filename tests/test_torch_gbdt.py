@@ -342,28 +342,42 @@ def test_cuda_device_without_a_card_raises():
 
 def test_leafwise_mesh_and_multi_process_fits_raise_naming_item_12(
         monkeypatch):
-    """Leaf-wise fits run on one device; the mesh-sharded builder and
-    multi-process fits wait for the parallel/ port (ROADMAP item 12)."""
+    """Item 12 is ported (the name is kept from its refusal test): a
+    leaf-wise fit with a mesh runs the data-parallel builder — with no
+    process group it runs no collective and gives the serial fit's bits —
+    and a multi-process fit without a mesh raises the JAX engine's
+    ValueError. tests/test_torch_gbdt_sharded.py runs the sharded fits
+    over gloo groups."""
+    from mmlspark_tpu_torch.parallel import mesh as tmesh
     x, y = _data()
-    p = teng.GBDTParams(num_iterations=1, num_leaves=7, max_bin=16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.fit_gbdt(x, y, p, mesh=object(), device="cpu")
-    dist = torch.distributed
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    p = teng.GBDTParams(num_iterations=2, num_leaves=7, max_bin=16)
+    want = teng.fit_gbdt(x, y, p, device="cpu")
+    got = teng.fit_gbdt(x, y, p, mesh=tmesh.create_mesh(), device="cpu")
+    for k, v in tstages._ensemble_to_state(want).items():
+        np.testing.assert_array_equal(tstages._ensemble_to_state(got)[k], v)
+    monkeypatch.setattr(tmesh, "effective_process_count", lambda: 2)
+    with pytest.raises(ValueError, match="multi-process fits need a mesh"):
         teng.fit_gbdt(x, y, p, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tstages.LightGBMClassifier(device="cpu", numIterations=1).fit(
-            _vec_df(x, y, DataFrame))
+    with pytest.raises(ValueError, match="binned fits are single-process"):
+        teng.fit_gbdt(None, y, p, mesh=tmesh.Mesh({"data": 1},
+                                                  torch.device("cpu")),
+                      binned=(np.zeros((len(y), 5), np.uint8),
+                              np.zeros((5, 15), np.float32)), device="cpu")
 
 
 def test_unported_paths_raise_naming_their_roadmap_items():
+    from mmlspark_tpu_torch.parallel import mesh as tmesh
     x, y = _data()
     p = teng.GBDTParams(num_iterations=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.fit_gbdt(x, y, p, mesh=object(), device="cpu")
+    # item 12's mesh fits are ported: both level-wise learners run on a
+    # mesh (no process group: the serial fit's bits)
+    want = tstages._ensemble_to_state(teng.fit_gbdt(x, y, p, device="cpu"))
+    for learner in ("data", "feature", "auto"):
+        got = tstages._ensemble_to_state(teng.fit_gbdt(
+            x, y, p._replace(tree_learner=learner),
+            mesh=tmesh.create_mesh(), device="cpu"))
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=learner)
     with pytest.raises(NotImplementedError, match="item 13"):
         teng.fit_gbdt_elastic(x, y, p, checkpoint_dir="unused")
     # the pipeline-capture body is ported: the traced walk over every row

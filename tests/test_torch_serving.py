@@ -24,6 +24,7 @@ import base64
 import json
 import os
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -341,8 +342,17 @@ def test_serving_batch_fault_is_retried(tel, flax_trees):
         code, _ = _post(source.url, _payload(_rows("convnet", 1)[0]))
         assert code == 200
         assert _counter_total("mmlspark_faults_injected_total") == 1
-        disp = telemetry.snapshot()["mmlspark_serving_dispatch_seconds"]
-        assert sum(s["count"] for s in disp["series"]) == 1
+
+        def dispatches():
+            disp = telemetry.snapshot().get(
+                "mmlspark_serving_dispatch_seconds", {"series": []})
+            return sum(s["count"] for s in disp["series"])
+        # the loop observes the dispatch timer after it hands the reply to
+        # the handler thread: wait for that observation instead of racing it
+        deadline = time.monotonic() + 10.0
+        while dispatches() < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert dispatches() == 1
     finally:
         loop.stop()
         source.close()

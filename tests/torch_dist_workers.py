@@ -3,7 +3,9 @@
 ``run_ranks(world, job, tmp_path, **kw)`` starts ``world`` Python processes,
 each joining one gloo process group over a ``FileStore`` under
 ``tmp_path`` (never a fixed port: several pytest workers run at once),
-runs the job ``JOBS[job](rank, world, **kw)`` and pickles its result;
+runs the job ``JOBS[job](rank, world, **kw)`` (or, for a ``job`` of the
+form ``"module:function"``, that function of a module in this directory)
+and pickles its result;
 the caller gets the ranks' results in rank order. Every group has a time
 limit, so a hung collective fails its test instead of eating the clock.
 The workers import torch and the port only (no JAX).
@@ -36,10 +38,11 @@ def run_ranks(world: int, job: str, tmp_path, timeout: float = 180,
     workers then rendezvous through ``initialize_from_env``); ``ranks``:
     start only these ranks (a missing peer)."""
     os.makedirs(str(tmp_path), exist_ok=True)
-    store = os.path.join(str(tmp_path), f"store_{job}")
+    tag = job.replace(":", "_")
+    store = os.path.join(str(tmp_path), f"store_{tag}")
     if os.path.exists(store):
         os.remove(store)
-    arg = os.path.join(str(tmp_path), f"args_{job}.pkl")
+    arg = os.path.join(str(tmp_path), f"args_{tag}.pkl")
     with open(arg, "wb") as f:
         pickle.dump(kw, f)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
@@ -47,7 +50,7 @@ def run_ranks(world: int, job: str, tmp_path, timeout: float = 180,
     env.pop("MMLSPARK_TPU_TELEMETRY", None)
     procs = []
     for r in (range(world) if ranks is None else ranks):
-        out = os.path.join(str(tmp_path), f"out_{job}_{r}.pkl")
+        out = os.path.join(str(tmp_path), f"out_{tag}_{r}.pkl")
         penv = dict(env, **(launch_env[r] if launch_env else {}))
         procs.append(subprocess.Popen(
             [sys.executable, "-c",
@@ -71,7 +74,7 @@ def run_ranks(world: int, job: str, tmp_path, timeout: float = 180,
     for r, (rc, o, e) in enumerate(errs):
         assert rc == 0, f"rank {r} rc {rc}\n{o}\n{e}"
     for r in range(world):
-        with open(os.path.join(str(tmp_path), f"out_{job}_{r}.pkl"),
+        with open(os.path.join(str(tmp_path), f"out_{tag}_{r}.pkl"),
                   "rb") as f:
             results.append(pickle.load(f))
     return results
@@ -90,8 +93,14 @@ def _main():
     else:
         distributed.initialize(f"file://{store}", world, rank, device="cpu",
                                init_timeout=int(init_timeout))
+    if ":" in job:
+        import importlib
+        mod, fn = job.split(":")
+        run = getattr(importlib.import_module(mod), fn)
+    else:
+        run = JOBS[job]
     try:
-        res = JOBS[job](rank, world, **kw)
+        res = run(rank, world, **kw)
     finally:
         distributed.shutdown()
     with open(out, "wb") as f:
