@@ -351,6 +351,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -557,6 +558,21 @@ PAR_DISPATCH_ROWS = 2
 PAR_NCCL_LAYERS, PAR_NCCL_ROWS = 2, 16
 # the gbdt_parallel phase's hist_impl="pallas" fit (row 7)
 GBDT_PAR_PALLAS_ITERS = 10
+# the elastic phase (resilience/elastic.py): (a) TRAIN_CFG at TRAIN_BATCH x
+# SEQ a step through TorchLearner(elastic=True, elasticHosts=4) over
+# ELASTIC_TRAIN_ROWS rows (16 steps an epoch), ELASTIC_EPOCHS epochs, an
+# async step checkpoint every ELASTIC_CKPT_EVERY steps, shuffle off; host2's
+# heartbeat killed once the first step checkpoint commits, each step paced by
+# an ELASTIC_PACE_S trainer.step delay; heartbeats every ELASTIC_HB_S, death
+# after ELASTIC_GRACE_S of silence. (b) the gbdt phase's 1M x 28 rows and
+# default Params through elasticConfig over 4 hosts, host2 killed after 2
+# iterations, each iteration paced by an ELASTIC_GBDT_PACE_S elastic.step
+# delay. (c) a one-process NCCL world through elastic_initialize: the
+# training slice at PAR_NCCL_LAYERS layers on PAR_NCCL_ROWS rows, in
+# generation 1 and again in generation 2 after teardown_for_rendezvous
+ELASTIC_TRAIN_ROWS, ELASTIC_EPOCHS, ELASTIC_CKPT_EVERY = 128, 2, 2
+ELASTIC_HOSTS, ELASTIC_GRACE_S, ELASTIC_HB_S = 4, 0.3, 0.05
+ELASTIC_PACE_S, ELASTIC_GBDT_PACE_S = 0.1, 0.03
 # the index dispatch's combined output against the one-hot einsums': the
 # gate rounds to bf16 in both, the sums of two products round once in f32
 # here and in the einsum's accumulator there (max |delta| / max |ref|)
@@ -5402,6 +5418,391 @@ def phase_gbdt_parallel(torch, env, dev="cuda", no_group=None):
     return launches
 
 
+@contextlib.contextmanager
+def captured_coordinators():
+    """The ElasticFitCoordinator objects whose recovery loop starts while
+    the block runs (a stage makes its own), in start order."""
+    from mmlspark_tpu_torch.resilience import elastic
+    seen = []
+    orig = elastic.ElasticFitCoordinator.run
+
+    def run(self, attempt_fn):
+        seen.append(self)
+        return orig(self, attempt_fn)
+    elastic.ElasticFitCoordinator.run = run
+    try:
+        yield seen
+    finally:
+        elastic.ElasticFitCoordinator.run = orig
+
+
+def gbdt_launches(**want) -> dict:
+    """timed_fit's counts of a call that launches ``want`` and nothing
+    else."""
+    return {**dict.fromkeys(("node_hist", "fused", "predict",
+                             "predict_lw"), 0), **want}
+
+
+def run_with(target, fn, *args):
+    """``fn()`` while ``target(*args, done)`` runs on a thread; the thread
+    is stopped and joined after."""
+    done = threading.Event()
+    t = threading.Thread(target=target, args=args + (done,), daemon=True)
+    t.start()
+    try:
+        return fn()
+    finally:
+        done.set()
+        t.join(timeout=10)
+
+
+def kill_host2_at_step_checkpoint(coords, ck, copies, done):
+    """Copy every checkpoint file as it lands (the epoch-final save prunes
+    the step ones) and kill host2's beacon once a step checkpoint has."""
+    killed = False
+    while not done.is_set():
+        for f in os.listdir(ck) if os.path.isdir(ck) else []:
+            if f.startswith("ckpt_") and f.endswith(".msgpack") \
+                    and f not in copies:
+                try:
+                    with open(os.path.join(ck, f), "rb") as fh:
+                        copies[f] = fh.read()
+                except OSError:
+                    continue
+                if not killed and "_s" in f and coords:
+                    coords[0].heartbeats["host2"].kill()
+                    killed = True
+        time.sleep(0.005)
+
+
+def elastic_train(torch, tmp: str, dev: str) -> dict:
+    """(a) The training slice through TorchLearner(elastic=True) over
+    ELASTIC_HOSTS simulated hosts of the card, every fit with the same
+    async step checkpoints: a non-elastic fit (the feed path), a clean
+    elastic fit (the heartbeats' and the step checks' cost: epoch 2's step
+    ms), and an elastic fit with host2 killed at the first step checkpoint.
+    Each ends on the non-elastic fit's parameters bit for bit; the killed
+    fit commits every step, resumes with the digest of the checkpoint file
+    it resumed from, and launches rows 1-3 exactly (committed + replayed
+    steps) times a step's count, within the clean fit's peak memory."""
+    from mmlspark_tpu_torch import DataFrame, TorchLearner
+    from mmlspark_tpu_torch.models.downloader import read_flax_msgpack
+    from mmlspark_tpu_torch.models.trainer import _params_digest
+    from mmlspark_tpu_torch.resilience import elastic, faults
+    rng = np.random.default_rng(SEED + 30)
+    tokens = rng.integers(0, TRAIN_CFG["vocab_size"],
+                          size=(ELASTIC_TRAIN_ROWS, SEQ), dtype=np.int32)
+    labels = rng.integers(0, TRAIN_CFG["num_classes"],
+                          size=ELASTIC_TRAIN_ROWS, dtype=np.int32)
+    df = DataFrame({"tokens": tokens, "label": labels})
+    steps = ELASTIC_TRAIN_ROWS // TRAIN_BATCH
+
+    def learner(name, **kw):
+        return TorchLearner(featuresCol="tokens", modelConfig=TRAIN_CFG,
+                            optimizer="adam", learningRate=1e-3,
+                            batchSize=TRAIN_BATCH, epochs=ELASTIC_EPOCHS,
+                            seed=SEED, shuffle=False, deviceDataCap=1,
+                            checkpointDir=os.path.join(tmp, name),
+                            checkpointEverySteps=ELASTIC_CKPT_EVERY,
+                            asyncCheckpoint=True, device=dev, **kw)
+
+    def peak_fit(fit):
+        # an earlier fit's cyclic garbage would count against this one
+        gc.collect()
+        synchronize(torch, dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        model = fit()
+        synchronize(torch, dev)
+        peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
+                else 0.0)
+        return model, peak
+
+    def step_ms(model):
+        return model._fit_stats["epoch_seconds"][-1] / steps * 1e3
+
+    plain, plain_peak = peak_fit(lambda: learner("plain").fit(df))
+    clean, clean_peak = peak_fit(lambda: learner(
+        "clean", elastic=True, elasticHosts=ELASTIC_HOSTS,
+        elasticGraceSeconds=ELASTIC_GRACE_S).fit(df))
+    check(same_params(clean, plain),
+          "the clean elastic fit differs from the non-elastic fit")
+
+    ck = os.path.join(tmp, "killed")
+    chaos = learner("killed")
+    faults.configure(f"trainer.step:delay:1.0:{ELASTIC_PACE_S}", seed=0)
+    copies = {}
+    coord = elastic.ElasticFitCoordinator(
+        chaos, n_hosts=ELASTIC_HOSTS, grace=ELASTIC_GRACE_S,
+        heartbeat_interval=ELASTIC_HB_S)
+    at_start, peaks = [], []
+
+    def attempt(devices, ctx):
+        # device memory held when each attempt starts (a re-entry must
+        # find the failed attempt's state released) and each attempt's
+        # peak
+        if dev == "cuda":
+            at_start.append(torch.cuda.memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            return chaos._fit(df, elastic_ctx=ctx)
+        finally:
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    try:
+        (model, killed_peak), launches = counted_call(
+            lambda: run_with(kill_host2_at_step_checkpoint,
+                             lambda: peak_fit(lambda: coord.run(attempt)),
+                             [coord], ck, copies))
+    finally:
+        faults.clear()
+    # the journal's recovery_s is the value the coordinator observes into
+    # mmlspark_elastic_recovery_seconds (telemetry stays off: its spans
+    # would wait on the stream and change what is compared)
+    recovery = [a["recovery_s"] for a in coord.attempts if "recovery_s" in a]
+    replayed = sum(a.get("replayed", 0) for a in coord.attempts)
+    check(coord.supervisor.dead_hosts() == {"host2"},
+          f"dead hosts {coord.supervisor.dead_hosts()}")
+    check(len(coord.attempts) >= 2, f"attempts {coord.attempts}")
+    check(set(coord.committed) >= {(e, s) for e in range(ELASTIC_EPOCHS)
+                                   for s in range(steps)},
+          f"committed {coord.committed}")
+    final = coord.attempts[-1]
+    epoch, step = final["resume_pos"]
+    name = (f"ckpt_{epoch:05d}.msgpack" if step is None
+            else f"ckpt_{epoch:05d}_s{step:07d}.msgpack")
+    check(name in copies and _params_digest(
+        read_flax_msgpack(copies[name])["params"])
+        == final["resume_digest"],
+          f"the resumed params' digest is not {name}'s")
+    check(same_params(model, plain),
+          "the killed elastic fit differs from the non-elastic fit")
+    executed = len(coord.committed)
+    check_launches(launches, attention_launches(executed),
+                   f"the killed elastic fit ({executed} steps run)", dev)
+    check(max(peaks, default=killed_peak) <= clean_peak * 1.05 + 1e-9,
+          f"an attempt's peak memory {peaks} GB (whole fit {killed_peak}) "
+          f"grew past the clean elastic fit's {clean_peak} GB; allocated "
+          f"at each attempt's start {at_start} GB")
+    return {"rows": ELASTIC_TRAIN_ROWS, "steps_per_epoch": steps,
+            "epochs": ELASTIC_EPOCHS, "hosts": ELASTIC_HOSTS,
+            "attempts": [{k: v for k, v in a.items()
+                          if k != "resume_digest"} for a in coord.attempts],
+            "steps_committed": len(set(coord.committed)),
+            "steps_run": executed, "steps_replayed": replayed,
+            "recovery_s": recovery, "launches": launches,
+            "bit_equal_to_non_elastic": True, "resume_digest_equal": True,
+            "step_ms_non_elastic": step_ms(plain),
+            "step_ms_elastic_clean": step_ms(clean),
+            "peak_gb_non_elastic": plain_peak,
+            "peak_gb_elastic_clean": clean_peak,
+            "peak_gb_killed": killed_peak, "peak_gb_by_attempt": peaks,
+            "allocated_gb_at_attempt_start": at_start}
+
+
+def elastic_gbdt(torch, tmp: str, no_elastic, dev: str) -> dict:
+    """(b) The gbdt phase's level-wise fit through ``elasticConfig`` over
+    ELASTIC_HOSTS simulated hosts: a clean run timed against the plain
+    stage fit, then host2 killed after 2 iterations. Each ensemble equals
+    the no-elastic state bit for bit; the killed fit launches row 4
+    exactly (iterations + replayed) x GBDT_DEPTH times, and its ensemble
+    scored once through row 5 gives the no-elastic scores."""
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.models.gbdt import engine, stages
+    from mmlspark_tpu_torch.resilience import faults
+    x, y = gbdt_data()
+    df = DataFrame({"features": x, "label": y})
+
+    def clf(ck=None):
+        kw = {} if ck is None else {"elasticConfig": {
+            "checkpointDir": os.path.join(tmp, ck), "hosts": ELASTIC_HOSTS,
+            "graceSeconds": ELASTIC_GRACE_S}}
+        return LightGBMClassifier(device=dev, growthPolicy="depthwise", **kw)
+
+    plain, plain_s, _ = timed_fit(torch, lambda: clf().fit(df), dev)
+    if no_elastic is None:
+        no_elastic = plain.getBoosterState()
+    check(same_state(plain.getBoosterState(), no_elastic),
+          "the plain stage fit differs from the gbdt phase's")
+    clean, clean_s, got = timed_fit(torch, lambda: clf("clean").fit(df),
+                                    dev)
+    check_launches(got, gbdt_launches(node_hist=GBDT_TREES * GBDT_DEPTH),
+                   "the clean elastic GBDT fit", dev)
+    check(same_state(clean.getBoosterState(), no_elastic),
+          "the clean elastic GBDT fit differs from the no-elastic fit")
+
+    def killer(coords, done):
+        while not done.is_set():
+            if coords and len(coords[0].committed) >= 2:
+                coords[0].heartbeats["host2"].kill()
+                return
+            time.sleep(0.002)
+
+    faults.configure(f"elastic.step:delay:1.0:{ELASTIC_GBDT_PACE_S}",
+                     seed=0)
+    try:
+        with captured_coordinators() as coords:
+            model, killed_s, got = timed_fit(
+                torch, lambda: run_with(killer, lambda: clf("killed").fit(df),
+                                        coords), dev)
+    finally:
+        faults.clear()
+    coord = coords[0]
+    check(coord.supervisor.dead_hosts() == {"host2"}
+          and len(coord.attempts) >= 2,
+          f"the GBDT kill: dead {coord.supervisor.dead_hosts()}, attempts "
+          f"{coord.attempts}")
+    iters = [it for _e, it in coord.committed]
+    check(set(iters) == set(range(GBDT_TREES)),
+          f"committed iterations {sorted(set(iters))}")
+    check_launches(got, gbdt_launches(node_hist=len(iters) * GBDT_DEPTH),
+                   f"the killed elastic GBDT fit ({len(iters)} iterations "
+                   f"run)", dev)
+    state = model.getBoosterState()
+    check(same_state(state, no_elastic),
+          "the killed elastic GBDT fit differs from the no-elastic fit")
+    ens = stages._state_to_ensemble(state, "binary", dev)
+    raw, _, scored = timed_fit(torch, lambda: engine.predict_raw(ens, x),
+                               dev)
+    check_launches(scored, gbdt_launches(predict=1),
+                   "scoring the elastic ensemble", dev)
+    want = engine.predict_raw(stages._state_to_ensemble(
+        no_elastic, "binary", dev), x)
+    check(np.array_equal(raw, want),
+          "the elastic ensemble's scores differ from the no-elastic ones")
+    return {"rows": len(x), "iterations": GBDT_TREES,
+            "hosts": ELASTIC_HOSTS, "attempts": coord.attempts,
+            "iterations_run": len(iters),
+            "iterations_replayed": len(iters) - GBDT_TREES,
+            "launches": {"fit": got["node_hist"],
+                         "score": scored["predict"]},
+            "bit_equal_to_no_elastic": True,
+            "fit_s_plain": plain_s, "fit_s_elastic_clean": clean_s,
+            "fit_s_killed": killed_s,
+            "pace_s_per_iteration": ELASTIC_GBDT_PACE_S}
+
+
+def elastic_nccl(torch, tmp: str, dev: str) -> dict:
+    """(c) A one-process world through ``elastic_initialize`` (NCCL on the
+    card; the launcher contract set for one process): generation 1, an
+    elastic fit through the rendezvous-armed path (its attempt on a watched
+    thread) bit-equal to the no-group fit; then teardown_for_rendezvous
+    (no collective: the communicator is aborted) and generation 2 on the
+    same device, whose fit is bit-equal again with no growth of device
+    memory."""
+    import socket
+
+    import torch.distributed as tdist
+    from mmlspark_tpu_torch import DataFrame, TorchLearner
+    from mmlspark_tpu_torch.parallel import distributed
+    cfg = dict(TRAIN_CFG, layers=PAR_NCCL_LAYERS)
+    rng = np.random.default_rng(SEED + 31)
+    tokens = rng.integers(0, cfg["vocab_size"], size=(PAR_NCCL_ROWS, SEQ),
+                          dtype=np.int32)
+    labels = rng.integers(0, cfg["num_classes"], size=PAR_NCCL_ROWS,
+                          dtype=np.int32)
+    df = DataFrame({"tokens": tokens, "label": labels})
+
+    def learner(**kw):
+        return TorchLearner(featuresCol="tokens", modelConfig=cfg,
+                            optimizer="adam", learningRate=1e-3,
+                            batchSize=TRAIN_BATCH, epochs=1, seed=SEED,
+                            shuffle=False, deviceDataCap=1, device=dev, **kw)
+
+    plain = learner().fit(df)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    contract = {"MMLTPU_COORDINATOR": f"127.0.0.1:{port}",
+                "MMLTPU_NUM_PROCESSES": "1", "MMLTPU_PROCESS_ID": "0",
+                "MMLTPU_HOST_ADDRESS": "127.0.0.1"}
+    saved = {k: os.environ.get(k) for k in contract}
+    os.environ.update(contract)
+    gens, allocated = [], []
+    try:
+        t0 = time.perf_counter()
+        check(distributed.elastic_initialize(os.path.join(tmp, "rdzv"),
+                                             device=dev),
+              "elastic_initialize did not join a generation")
+        init_s = time.perf_counter() - t0
+        rdzv = distributed.rendezvous_coordinator()
+        check(rdzv.generation == 1, f"generation {rdzv.generation}")
+        for gen in (1, 2):
+            if gen == 2:
+                t0 = time.perf_counter()
+                distributed.teardown_for_rendezvous()
+                check(not tdist.is_initialized(),
+                      "teardown left the process group up")
+                rdzv.join(rdzv.propose(["host0"]))
+                rejoin_s = time.perf_counter() - t0
+                check(rdzv.generation == 2, f"generation {rdzv.generation}")
+            backend = tdist.get_backend()
+            check(backend == ("nccl" if dev == "cuda" else "gloo"),
+                  f"generation {gen}'s backend is {backend}")
+            gc.collect()      # the earlier fits' cyclic garbage goes first
+            synchronize(torch, dev)
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            model = learner(checkpointDir=os.path.join(tmp, f"ck{gen}"),
+                            elastic=True).fit(df)
+            synchronize(torch, dev)
+            check(same_params(model, plain),
+                  f"generation {gen}'s elastic fit differs from the "
+                  f"no-group fit")
+            model = None
+            gc.collect()
+            if dev == "cuda":
+                allocated.append(torch.cuda.memory_allocated())
+                gens.append(torch.cuda.max_memory_allocated() / 1e9)
+            else:
+                allocated.append(0)
+                gens.append(0.0)
+        check(allocated[1] <= allocated[0] and gens[1] <= gens[0] * 1.01,
+              f"device memory grew across generations: allocated "
+              f"{allocated}, peak GB {gens}")
+    finally:
+        distributed.teardown_for_rendezvous()
+        if distributed._rdzv_coordinator is not None:
+            distributed._rdzv_coordinator.heartbeat.stop()
+            distributed._rdzv_coordinator = None
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"backend": "nccl" if dev == "cuda" else "gloo",
+            "generations": 2, "init_s": init_s, "rejoin_s": rejoin_s,
+            "fit_bit_equal": True, "peak_gb_by_generation": gens,
+            "allocated_bytes_after_fit": allocated}
+
+
+def phase_elastic(torch, env, dev="cuda", no_elastic_gbdt=None):
+    """resilience/elastic.py on the card: (a) the training slice, (b) the
+    GBDT slice (``no_elastic_gbdt``: the gbdt phase's state, else fitted
+    here) and (c) a one-process NCCL world over two generations. Returns
+    the launches of (a)'s killed fit and (b)'s killed fit and scoring."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.abspath(".")) as tmp:
+        t0 = time.perf_counter()
+        train = elastic_train(torch, tmp, dev)
+        train["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gbdt = elastic_gbdt(torch, tmp, no_elastic_gbdt, dev)
+        gbdt["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = elastic_nccl(torch, tmp, dev)
+        nccl["seconds"] = time.perf_counter() - t0
+    emit({"phase": "elastic", "config": TRAIN_CFG, "train": train,
+          "gbdt": gbdt, "one_process_world": nccl,
+          "gpu": env.gpu_name_and_power_limit(),
+          "seconds": time.perf_counter() - t_phase})
+    return {"train": train["launches"],
+            "node_hist": gbdt["launches"]["fit"],
+            "predict": gbdt["launches"]["score"]}
+
+
 def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
     """One GBDT kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda",
@@ -5417,7 +5818,8 @@ def gbdt_entry(name, source, line, launches, by_path, err, timing) -> dict:
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_gbdt", "slice", "train",
           "gbdt", "gbdt_leafwise", "gbdt_efb", "vision_ops", "vision_serve",
           "vision_train", "automl_tabular", "automl_text", "platform",
-          "ingest", "serving", "fusion", "parallel", "gbdt_parallel")
+          "ingest", "serving", "fusion", "parallel", "gbdt_parallel",
+          "elastic")
 PHASE_FNS = {
     "build": phase_build,
     "kernel": lambda torch, env: phase_kernel(torch),
@@ -5439,6 +5841,7 @@ PHASE_FNS = {
     "fusion": phase_fusion,
     "parallel": phase_parallel,
     "gbdt_parallel": phase_gbdt_parallel,
+    "elastic": phase_elastic,
 }
 
 
@@ -5509,6 +5912,7 @@ def main(argv=None) -> int:
         torch, env, no_group={"levelwise": gbdt["state"],
                               "pallas": gbdt["fused_state"],
                               "leafwise": leafwise["state"]})
+    el = phase_elastic(torch, env, no_elastic_gbdt=gbdt["state"])
     hist_by_path = {"fit": gbdt["node_hist"],
                     "fit_leafwise": leafwise["node_hist"],
                     "fit_efb": efb["node_hist"],
@@ -5519,7 +5923,8 @@ def main(argv=None) -> int:
                     "fit_staged_pipeline_leafwise": fusion["fit_leafwise"],
                     "fit_fused_leafwise": fusion["fit_fused_leafwise"],
                     "serve_pipeline_composite": fusion["serve_hist"],
-                    "gbdt_parallel": gbdt_par["node_hist"]}
+                    "gbdt_parallel": gbdt_par["node_hist"],
+                    "gbdt_elastic": el["node_hist"]}
     predict_by_path = {"transform": gbdt["predict"],
                        "automl_transform": automl["predict"],
                        "serve_pipeline": serving["predict"],
@@ -5527,7 +5932,8 @@ def main(argv=None) -> int:
                        "transform_staged_pipeline":
                            fusion["transform_staged"],
                        "serve_pipeline_composite": fusion["serve_predict"],
-                       "gbdt_parallel": gbdt_par["predict"]}
+                       "gbdt_parallel": gbdt_par["predict"],
+                       "gbdt_elastic": el["predict"]}
     predict_lw_by_path = {"transform_leafwise": leafwise["predict_lw"],
                           "automl_tune": automl["predict_lw"],
                           "transform_fused_split":
@@ -5545,7 +5951,8 @@ def main(argv=None) -> int:
                               "transform_graphs":
                                   serving["transform_graphs"],
                               "serve_moe": parallel["serve_moe"]["fwd"],
-                              "train_moe": parallel["train_moe"]["fwd"]},
+                              "train_moe": parallel["train_moe"]["fwd"],
+                              "train_elastic": el["train"]["fwd"]},
          "max_abs_err": worst["out"], "max_err": worst["out"],
          "max_lse_err": worst["lse"],
          "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
@@ -5557,7 +5964,8 @@ def main(argv=None) -> int:
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": replaces + "107", "launches": train["dq"],
          "launches_by_path": {"train": train["dq"],
-                              "train_moe": parallel["train_moe"]["dq"]},
+                              "train_moe": parallel["train_moe"]["dq"],
+                              "train_elastic": el["train"]["dq"]},
          "max_abs_err": bwd_worst["dq_abs"], "max_err": bwd_worst["dq"],
          "max_rel_l2_err": bwd_worst["dq_l2"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
@@ -5568,7 +5976,8 @@ def main(argv=None) -> int:
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": replaces + "155", "launches": train["dkv"],
          "launches_by_path": {"train": train["dkv"],
-                              "train_moe": parallel["train_moe"]["dkv"]},
+                              "train_moe": parallel["train_moe"]["dkv"],
+                              "train_elastic": el["train"]["dkv"]},
          "max_abs_err": bwd_worst["dkv_abs"], "max_err": bwd_worst["dkv"],
          "max_rel_l2_err": bwd_worst["dkv_l2"],
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"],

@@ -25,7 +25,8 @@ span names as the JAX package. The fleet half waits for ROADMAP.md Queue 1
 item 13b: ``/fleet/metrics`` and ``/timeseries?scope=fleet`` answer 404
 until a federation is attached (none is, in the port), ``/debug/threads``
 answers 501, and the race sanitizer's instrumentation of the source's
-counters is left out. The port has no elastic fit, so ``/healthz`` has no
+counters is left out. An elastic fit running in the process
+(resilience/elastic.py) adds its fleet state to ``/healthz`` as the
 ``elastic`` section.
 """
 
@@ -461,6 +462,13 @@ class HTTPSource:
             # supervisor (or k8s) sees budget burn without a new endpoint
             out["slo"] = self.slo.healthz()
             out["ok"] = out["ok"] and out["slo"]["ok"]
+        # an elastic fit running in this process surfaces its fleet state
+        # on the same probe: hosts alive, stragglers, pending evict/grow
+        # verdicts, the rendezvous generation
+        from ...resilience.elastic import fleet_health
+        fleet = fleet_health()
+        if fleet is not None:
+            out["elastic"] = fleet
         if self.fleet_state is not None:
             # the serving-fleet coordinator surface: every worker's healthz
             # (warm buckets, breakers, queue depth) aggregated into one

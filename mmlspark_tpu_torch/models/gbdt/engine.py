@@ -49,8 +49,12 @@ histograms are the same kernels as a serial fit's. Unlike the JAX engine,
 ranks may hold different numbers of rows: the learners sum histograms,
 never one global row array, so no rank pads its shard.
 
-Not ported yet, raising NotImplementedError: ``fit_gbdt_elastic`` (ROADMAP
-item 13b).
+Elastic boosted fits (``fit_gbdt(elastic_ctx=...)``, ``fit_gbdt_elastic``)
+run the same loop body under resilience/elastic.py's coordinator: each
+iteration passes ``check_step`` first, and a one-process fit hands the
+coordinator a snapshot of its boosting state after every iteration (the
+trees, the training margins, the bagging row mask, both RNG states and the
+early-stopping state), from which a re-meshed attempt continues bit for bit.
 """
 
 from __future__ import annotations
@@ -677,12 +681,10 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
     is the early-stopping holdout, else ``early_stopping_round > 0`` holds
     out a seeded fifth of the rows; ``binned=(bins, edges)`` supplies an
     already-binned (n, d) uint8 matrix (numpy or tensor) and its edges
-    (pass x=None; one process only). ``elastic_ctx`` raises
-    NotImplementedError naming the ROADMAP item that ports it."""
-    if elastic_ctx is not None:
-        raise NotImplementedError(
-            "elastic boosted fits wait for the resilience/ elastic runtime: "
-            "ROADMAP.md Queue 1 item 13b")
+    (pass x=None; one process only). ``elastic_ctx`` (an
+    ``ElasticStepContext``) checks each iteration for a host verdict before
+    its device work and, in one process, resumes from and saves the
+    per-iteration boosting snapshot."""
     dev = torch_device(device)
     if mesh is not None and mesh.distributed:
         if mesh.device.type != dev.type:
@@ -696,13 +698,54 @@ def fit_gbdt(x: np.ndarray, y: np.ndarray, params: GBDTParams,
                               iterations=params.num_iterations):
         return _fit_gbdt_impl(x, y, params, mesh=mesh,
                               sample_weight=sample_weight,
-                              eval_set=eval_set, binned=binned, device=dev)
+                              eval_set=eval_set, binned=binned, device=dev,
+                              elastic_ctx=elastic_ctx)
 
 
-def fit_gbdt_elastic(*args, **kwargs):
-    raise NotImplementedError(
-        "fit_gbdt_elastic waits for the resilience/ elastic runtime: "
-        "ROADMAP.md Queue 1 item 13b")
+def fit_gbdt_elastic(x: np.ndarray, y: np.ndarray, params: GBDTParams,
+                     *, checkpoint_dir: str, n_hosts: int = 0,
+                     min_hosts: int = 1, grace: Optional[float] = None,
+                     max_failures: int = 5,
+                     heartbeat_interval: Optional[float] = None,
+                     max_hosts: int = 0,
+                     sample_weight: Optional[np.ndarray] = None,
+                     eval_set: Optional[tuple] = None,
+                     device="cuda") -> TreeEnsemble:
+    """Elastic boosted fit: drives :func:`fit_gbdt` through the
+    :class:`~...resilience.elastic.ElasticFitCoordinator` recovery loop, so
+    a host lost mid-boosting raises ``HostLossError`` -> re-mesh over the
+    survivors -> resume from the last completed iteration's boosting-state
+    snapshot (and a relaunched host grows the mesh back at the next
+    iteration boundary) instead of the fit dying.
+
+    ``x``/``y`` are the RAW rows: each attempt pads them to its own mesh's
+    multiple (weight-0 rows; none over one rank). ``checkpoint_dir`` hosts
+    the heartbeat files; the boosting state resumes from the
+    coordinator's in-memory snapshot."""
+    from ...parallel import mesh as meshlib
+    from ...resilience.elastic import ElasticFitCoordinator
+    if params.tree_learner not in ("data", "auto"):
+        raise ValueError(
+            "elastic GBDT fits shard rows (tree_learner=data|auto), got "
+            f"{params.tree_learner!r}")
+    coord = ElasticFitCoordinator(
+        checkpoint_dir=checkpoint_dir, n_hosts=n_hosts,
+        min_hosts=min_hosts, grace=grace, max_failures=max_failures,
+        heartbeat_interval=heartbeat_interval, max_hosts=max_hosts)
+
+    def attempt(devices, ctx):
+        mesh = meshlib.create_mesh()
+        xp, n_real = meshlib.pad_batch_to_devices(x, mesh)
+        yp = np.concatenate([y, np.zeros(len(xp) - n_real, y.dtype)])
+        w = (np.ones(n_real, np.float32) if sample_weight is None
+             else np.asarray(sample_weight, np.float32))
+        w = np.concatenate([w, np.zeros(len(xp) - n_real, np.float32)])
+        with meshlib.collective_fit_lock:
+            return fit_gbdt(xp, yp, params, mesh=mesh, sample_weight=w,
+                            eval_set=eval_set, elastic_ctx=ctx,
+                            device=device)
+
+    return coord.run(attempt)
 
 
 def _pooled_edges_and_base(x, y, sample_weight, p: GBDTParams):
@@ -746,7 +789,7 @@ def _check_replicated(x, y, sample_weight):
 
 
 def _fit_gbdt_impl(x, y, params: GBDTParams, *, mesh, sample_weight,
-                   eval_set, binned, device: torch.device):
+                   eval_set, binned, device: torch.device, elastic_ctx=None):
     from ...parallel import mesh as meshlib
     p = params
     if binned is not None:
@@ -933,8 +976,45 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, mesh, sample_weight,
         np.pad(np.ones(d, dtype=np.float32), (0, d_pad - d)), device))
     lr_eff = 1.0 if is_rf else p.learning_rate
     mode = "leafwise" if leafwise else "levelwise"
-    for it in range(p.num_iterations):
+
+    # ---- elastic resume: re-enter from the latest boosting snapshot ----
+    # (one process only; a multi-process fleet uses the coordinator's
+    # detection + fail-fast + relaunch path)
+    start_it = 0
+    row_mask = None
+    elastic_snap = elastic_ctx is not None and nproc == 1
+    if elastic_snap:
+        snap = elastic_ctx.latest_snapshot()
+        if snap is not None:
+            start_it = snap["it"] + 1
+            feats, thrs, leaves = (list(snap["feats"]), list(snap["thrs"]),
+                                   list(snap["leaves"]))
+            best_loss, since_best, best_iter = snap["best"]
+            # the RNG streams continue EXACTLY where the lost attempt left
+            # them: bagging masks and feature fractions replay from here
+            rng.bit_generator.state = snap["rng"]
+            feat_rng.bit_generator.state = snap["feat_rng"]
+            k = min(len(snap["raw"]), n)
+            raw[:k] = snap["raw"][:k].to(device)   # pad rows train at 0
+            if snap.get("row_mask") is not None:
+                row_mask = np.zeros(n, np.float32)
+                row_mask[:k] = snap["row_mask"][:k]
+                rm = _to_device(row_mask, device)
+            if eval_set is not None and snap.get("raw_val") is not None:
+                raw_val = snap["raw_val"].to(device)
+            get_logger("gbdt").info(
+                "elastic resume: re-entering the boosting loop at "
+                "iteration %d (%d trees restored)", start_it, len(leaves))
+        elastic_ctx.resumed(None if snap is None else (0, snap["it"]),
+                            None)
+
+    for it in range(start_it, p.num_iterations):
         t_iter = time.perf_counter() if telemetry.enabled() else 0.0
+        if elastic_ctx is not None:
+            # host-loss / grow check (site elastic.step): HostLossError /
+            # HostRejoinError unwind to the coordinator's re-mesh; the
+            # snapshot below is what the next attempt resumes from
+            elastic_ctx.check_step()
         if bagging:
             if it % p.bagging_freq == 0:
                 bag_mask = (rng.random(n) < p.bagging_fraction).astype(
@@ -1002,6 +1082,24 @@ def _fit_gbdt_impl(x, y, params: GBDTParams, *, mesh, sample_weight,
                 since_best += 1
                 if since_best >= p.early_stopping_round:
                     break
+
+        if elastic_snap:
+            # the boosting-state candidate (newest wins): everything a
+            # re-meshed attempt needs to continue bit for bit from
+            # iteration it+1. The tensors are this iteration's own (every
+            # step makes new ones), so the snapshot costs no copy and no
+            # wait; checkpoint_saved marks the grow boundary — for boosted
+            # fits the snapshot IS the checkpoint
+            elastic_ctx.save_snapshot({
+                "it": it, "feats": list(feats), "thrs": list(thrs),
+                "leaves": list(leaves), "raw": raw,
+                "raw_val": raw_val if eval_set is not None else None,
+                "row_mask": row_mask if bagging else None,
+                "rng": rng.bit_generator.state,
+                "feat_rng": feat_rng.bit_generator.state,
+                "best": (best_loss, since_best, best_iter)})
+            elastic_ctx.step_committed(0, it)
+            elastic_ctx.checkpoint_saved(0, it)
 
     if best_iter is not None:
         feats, thrs, leaves = (feats[:best_iter], thrs[:best_iter],

@@ -22,10 +22,10 @@ default below 262144 rows, with categorical slots as category-set splits)
 and their models, dense and wide-sparse features (the top-k columns, and
 under leaf-wise growth the tail bundled into categorical composites by
 EFB, ``efb.py``), save/load, and JAX-fitted ``boosterState`` dicts of
-either kind, which the models take as they are. Not yet, raising
-NotImplementedError: ``elasticConfig`` (ROADMAP item 13b). The
-growthPolicy='auto' reroute counts in
-``mmlspark_gbdt_auto_depthwise_reroutes``.
+either kind, which the models take as they are, and elastic fits
+(``elasticConfig``: ``engine.fit_gbdt_elastic``, over simulated hosts of
+the one device in a world of one rank). The growthPolicy='auto' reroute
+counts in ``mmlspark_gbdt_auto_depthwise_reroutes``.
 
 Pipeline fusion (core/capture.py): a level-wise model's ``capture`` is the
 dense traced walk (``engine.traced_raw_levelwise``, binning included) in
@@ -104,8 +104,16 @@ class _BoosterParams:
                  "serial"))
     seed = IntParam("random seed", default=0)
     elasticConfig = DictParam(
-        "elastic boosted fit (not ported yet: ROADMAP item 13b)",
-        default=None)
+        "elastic boosted fit (resilience/elastic.py): "
+        "{'checkpointDir': dir (required; hosts the heartbeat files), "
+        "'hosts': N failure domains (0 = one per process; >1 in a world "
+        "of one rank = simulated hosts over its device), 'minHosts', "
+        "'graceSeconds', 'maxHosts', 'maxFailures'}. A host lost "
+        "mid-boosting re-meshes over the survivors and resumes from the "
+        "last completed iteration's boosting-state snapshot (a "
+        "relaunched host grows the mesh back at the next iteration "
+        "boundary) instead of the fit dying. Requires "
+        "parallelism=data_parallel (or voting_parallel)", default=None)
     maxDenseFeatures = IntParam(
         "sparse inputs wider than this train on the top-k document-"
         "frequency columns (the dense bin matrix is the device format; "
@@ -419,12 +427,32 @@ def _fit_ensemble(params_holder, x, y, objective, num_class=1, alpha=0.9,
     n_local = int(binned[0].shape[0]) if binned is not None else x.shape[0]
     p = params_holder._engine_params(objective, num_class, alpha, categorical,
                                      n_rows=_global_rows(n_local))
-    if params_holder.getOrDefault("elasticConfig"):
-        raise NotImplementedError(
-            "elasticConfig waits for the resilience/ elastic runtime: "
-            "ROADMAP.md Queue 1 item 13b")
-    mesh = params_holder._mesh(n_local)
     device = params_holder.getOrDefault("device")
+    ecfg = params_holder.getOrDefault("elasticConfig")
+    if ecfg:
+        if binned is not None:
+            raise ValueError(
+                "binned (fused) fits do not support elasticConfig; the "
+                "fused hook should have declined this fit")
+        if not ecfg.get("checkpointDir"):
+            raise ValueError("elasticConfig needs 'checkpointDir' (hosts "
+                             "the heartbeat files)")
+        if p.tree_learner not in ("data", "auto"):
+            raise ValueError(
+                "elasticConfig requires a data-parallel fit "
+                "(parallelism=data_parallel); got "
+                f"{params_holder.getOrDefault('parallelism')!r}")
+        # the elastic wrapper pads per attempt (its mesh may shrink or
+        # grow), so it takes the RAW rows
+        return engine.fit_gbdt_elastic(
+            x, y, p,
+            checkpoint_dir=ecfg["checkpointDir"],
+            n_hosts=int(ecfg.get("hosts", 0)),
+            min_hosts=int(ecfg.get("minHosts", 1)),
+            grace=ecfg.get("graceSeconds"),
+            max_failures=int(ecfg.get("maxFailures", 5)),
+            max_hosts=int(ecfg.get("maxHosts", 0)), device=device)
+    mesh = params_holder._mesh(n_local)
     if mesh is None:
         return engine.fit_gbdt(x, y, p, binned=binned, device=device)
     if p.tree_learner not in ("data", "auto"):

@@ -80,8 +80,17 @@ fitted model's params are the whole tree on every rank. With no process
 group a fit is the one-device fit. MoE transformers (``num_experts > 0``)
 train with their row mask and ``moeAuxWeight``.
 
-Not ported yet, and raising NotImplementedError naming its ROADMAP.md
-item: elastic training (item 13b).
+Elastic training (``elastic=True``, resilience/elastic.py): heartbeats
+and a TrainSupervisor declare a dead host within the grace window, the fit
+re-meshes over the survivors and re-enters from the latest ``(epoch,
+step)`` consensus checkpoint, losing no committed step; a relaunched host
+grows the mesh back, and a sustained straggler is evicted, at a checkpoint
+boundary. ``elasticHosts > 1`` in one process makes simulated failure
+domains over the process's one device; under ``parallel.distributed
+.elastic_initialize`` the ranks re-rendezvous into a new process group. An
+elastic fit takes the per-step feed path (the host checks each step), and
+each step passes ``check_step`` before its device work and
+``step_committed`` after it.
 """
 
 from __future__ import annotations
@@ -144,6 +153,25 @@ _seen_step_sigs: set = set()
 #: non-transient and raises at once.
 _STEP_RETRY = RetryPolicy(name="trainer.step", max_attempts=2,
                           base_delay=0.05, max_delay=0.25)
+
+
+def _params_digest(params, cfg: Optional[dict] = None) -> str:
+    """sha256 over the bytes of every leaf of a flax-layout params tree, in
+    jax's leaf order (sorted keys): the elastic coordinator's bit-exact
+    resume evidence, equal to the JAX package's digest of the same values.
+    ``params`` is that tree (a checkpoint's ``"params"``), or the port's
+    state_dict with its sized ``cfg``."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        else:
+            h.update(np.ascontiguousarray(node, np.float32).tobytes())
+    walk(to_flax_params(params, cfg) if cfg is not None else params)
+    return h.hexdigest()
 
 
 def _note_step_signature(tag: str, *arrays):
@@ -664,9 +692,7 @@ class TorchLearner(Estimator):
     every rank of a process group.
 
     Params mirror the JAX package's; ``device`` is the port's own (under a
-    process group: the kind of the ranks' devices). The elastic Params are
-    kept so a saved stage round-trips, and raise at fit time away from
-    their defaults."""
+    process group: the kind of the ranks' devices)."""
 
     featuresCol = StringParam("features column (token ids for the "
                               "transformer)", default="features")
@@ -764,21 +790,46 @@ class TorchLearner(Estimator):
         "gauges, and device memory sampling (telemetry.profiler). Enables "
         "telemetry and waits for each dispatch's stream — measurement "
         "mode, not the production default", default=False)
-    elastic = BooleanParam("run fit through the elastic training runtime; "
-                           "not ported yet (ROADMAP item 13b)",
-                           default=False)
-    elasticHosts = IntParam("elastic failure domains (needs elastic)",
-                            default=0, min=0)
-    elasticMinHosts = IntParam("elastic survivors to keep training (needs "
-                               "elastic)", default=1, min=1)
-    elasticGraceSeconds = FloatParam("elastic heartbeat grace (needs "
-                                     "elastic)", default=0.0, min=0.0)
-    elasticMaxFailures = IntParam("elastic transient failures tolerated "
-                                  "(needs elastic)", default=5, min=1)
-    elasticMaxHosts = IntParam("elastic grow ceiling (needs elastic)",
-                               default=0, min=0)
-    stragglerEvictAfter = IntParam("elastic straggler eviction (needs "
-                                   "elastic)", default=0, min=0)
+    elastic = BooleanParam(
+        "run fit through the elastic training runtime "
+        "(resilience/elastic.py): host heartbeats + a TrainSupervisor "
+        "declare a dead/preempted host within the grace window, the fit "
+        "re-meshes over the surviving hosts and resumes from the latest "
+        "(epoch, step) consensus checkpoint — zero committed steps lost. "
+        "Requires checkpointDir; forces the per-step feed path; composes "
+        "with data(+tensor) parallelism only", default=False)
+    elasticHosts = IntParam(
+        "failure domains for elastic training: 0 = one host per process "
+        "(the real host boundary); >1 in one process = this many "
+        "simulated hosts over the process's device (chaos testing, "
+        "rehearsal of the multi-host recovery path)", default=0, min=0)
+    elasticMinHosts = IntParam(
+        "survivors needed to keep training in-job after a host loss; "
+        "below it the fit raises ElasticFleetLost (relaunch the fleet "
+        "against the same checkpointDir to resume)", default=1, min=1)
+    elasticGraceSeconds = FloatParam(
+        "heartbeat age that turns silence into a death verdict; 0 = "
+        "MMLSPARK_TPU_ELASTIC_GRACE or 2.0", default=0.0, min=0.0)
+    elasticMaxFailures = IntParam(
+        "transient fit failures tolerated WITHOUT a host verdict before "
+        "the elastic loop gives up (failures attributed to a dead host "
+        "re-mesh instead and do not burn this budget)", default=5, min=1)
+    elasticMaxHosts = IntParam(
+        "ceiling for in-job GROW: a relaunched host whose joining "
+        "heartbeat earns a grow verdict re-enters the mesh at the next "
+        "checkpoint boundary only while the pool is below this many "
+        "hosts (0 = the launch fleet size). Shrink is unaffected",
+        default=0, min=0)
+    stragglerEvictAfter = IntParam(
+        "promote a straggler verdict (rolling-MAD step-time anomaly, "
+        "advisory by default) into a proactive EVICT after this many "
+        "consecutive flagged supervisor passes: the slow host is "
+        "dropped at the next committed checkpoint boundary — the same "
+        "unwind path as a host loss, fired BEFORE the slow-then-dead "
+        "host actually dies — and rejoins through the grow path once "
+        "recovered. Floors: survivors must satisfy elasticMinHosts and "
+        "the coordinator host is never evicted. 0 = advisory only",
+        default=0, min=0)
     sloConfig = DictParam(
         "declarative SLO config evaluated DURING this fit "
         "(telemetry.slo): either a full {'objectives': [...], "
@@ -793,18 +844,57 @@ class TorchLearner(Estimator):
         default="cuda")
 
     # ---- set-up ----
-    def _refuse_unported(self):
-        if self.getElastic():
-            if (self.getSequenceParallel() > 1
-                    or self.getExpertParallel() > 1
-                    or self.getPipelineParallel() > 1):
-                raise ValueError(
-                    "elastic fit composes with data(+tensor) parallelism "
-                    "only (a seq/expert/pipe axis cannot shrink mid-run); "
-                    "run sp/ep/pp fits without elastic")
-            raise NotImplementedError(
-                "elastic training is not ported yet (ROADMAP.md Queue 1 "
-                "item 13b)")
+    def _elastic_coordinator(self):
+        from ..resilience.elastic import ElasticFitCoordinator
+        return ElasticFitCoordinator(
+            self, n_hosts=self.getElasticHosts(),
+            min_hosts=self.getElasticMinHosts(),
+            grace=self.getElasticGraceSeconds() or None,
+            max_failures=self.getElasticMaxFailures(),
+            max_hosts=self.getElasticMaxHosts(),
+            evict_after=self.getStragglerEvictAfter())
+
+    def _elastic_setup(self, elastic_ctx):
+        """Per-attempt elastic state: rendezvous-armed fleets route every
+        checkpoint through the writer thread and bound its wait
+        (_save_checkpoint, _ckpt_barrier); an elastic fit composes with
+        data(+tensor) parallelism only."""
+        self._elastic_multiproc = bool(
+            elastic_ctx is not None
+            and getattr(elastic_ctx._coord, "_multiproc", False))
+        if elastic_ctx is not None and (self.getSequenceParallel() > 1
+                                        or self.getExpertParallel() > 1
+                                        or self.getPipelineParallel() > 1):
+            raise ValueError(
+                "elastic fit composes with data(+tensor) parallelism only "
+                "(a seq/expert/pipe axis cannot shrink mid-run); run "
+                "sp/ep/pp fits without elastic")
+
+    def _report_resume(self, elastic_ctx, params):
+        """Hand the coordinator the resumed position and the digest of the
+        restored params (None on a fresh start): the bit-exact resume
+        evidence. A distributed fit gathers the whole tree first (every
+        rank resumes at the same point)."""
+        if elastic_ctx is None:
+            return
+        pos = getattr(self, "_ckpt_floor", None)
+        digest = None
+        if pos is not None:
+            if getattr(self, "_plan", None) is not None:
+                params = self._plan.gather(params)
+            digest = _params_digest(params, self._ckpt_cfg)
+        elastic_ctx.resumed(pos, digest)
+
+    def _fit_guard(self, par):
+        """The collective-fit lock of a distributed fit. Elastic
+        multi-process attempts run on abandonable threads: an orphaned
+        attempt (pinned in a dead collective) may still hold the
+        reentrant lock and can never issue a collective on the new group,
+        so they skip it."""
+        if par is None or getattr(self, "_elastic_multiproc", False):
+            return contextlib.nullcontext()
+        from ..parallel import mesh as meshlib
+        return meshlib.collective_fit_lock
 
     def _parallel_setup(self, cfg: dict, seq_len: Optional[int],
                         dev: torch.device):
@@ -961,7 +1051,17 @@ class TorchLearner(Estimator):
         flight (a no-op when asyncCheckpoint never armed); ``close`` also
         stops the writer. A writer-thread error re-raises here, unless
         another exception is already unwinding (a step fault must not be
-        masked by a failed background write; it is logged instead)."""
+        masked by a failed background write; it is logged instead).
+        Elastic multi-process fits bound the wait: a writer snapshotting
+        the output of a collective whose peer died may never finish, so
+        past the bound it is orphaned (a daemon thread) and recovery
+        proceeds — the manifest-last protocol keeps its partial write from
+        ever becoming a resume candidate. An orphaned elastic attempt
+        thread never touches the live writer."""
+        import threading
+        active = getattr(self, "_active_fit_thread", None)
+        if active is not None and active is not threading.current_thread():
+            return
         w = getattr(self, "_ckpt_writer_inst", None)
         if w is None:
             return
@@ -969,6 +1069,14 @@ class TorchLearner(Estimator):
             self._ckpt_writer_inst = None
         unwinding = sys.exc_info()[0] is not None
         try:
+            if getattr(self, "_elastic_multiproc", False):
+                if not w.wait(timeout=10.0):
+                    log.warning("async checkpoint writer stalled past 10 s "
+                                "(a dead-collective snapshot?); abandoning "
+                                "it — uncommitted writes never become "
+                                "resume candidates")
+                    self._ckpt_writer_inst = None
+                    return
             (w.close if close else w.wait)()
         except Exception as e:
             if not unwinding:
@@ -1013,7 +1121,7 @@ class TorchLearner(Estimator):
         return s
 
     def _save_checkpoint(self, epoch: int, state: tuple, dev,
-                         step: Optional[int] = None):
+                         step: Optional[int] = None, elastic_ctx=None):
         from ..resilience import ckpt as ckptlib
         from .downloader import write_flax_msgpack
         plan = getattr(self, "_plan", None)
@@ -1039,11 +1147,13 @@ class TorchLearner(Estimator):
                  if plan is not None else None)
 
         def on_commit():
-            # strictly after the rename + manifest commit: pruning only
-            # ever sees durable state
+            # strictly after the rename + manifest commit: pruning and the
+            # elastic checkpoint-boundary hook only ever see durable state
             self._ckpt_floor = (epoch, step)
             self._prune_step_checkpoints(epoch,
                                          None if step is None else keep)
+            if elastic_ctx is not None:
+                elastic_ctx.checkpoint_saved(epoch, step)
 
         if n_shards > 1:
             def payload():
@@ -1059,7 +1169,12 @@ class TorchLearner(Estimator):
             def payload():
                 return write_flax_msgpack(self._ckpt_state(*snap.host()))
             publish = functools.partial(ckptlib.publish, extra=extra)
-        if self.getAsyncCheckpoint():
+        # elastic multi-process fits route EVERY save through the writer:
+        # a snapshot waited for on the fit thread would block it forever
+        # behind a collective whose peer died; on the writer thread the
+        # stall is bounded and abandoned by _ckpt_barrier
+        if self.getAsyncCheckpoint() or getattr(self, "_elastic_multiproc",
+                                                False):
             self._ckpt_writer().submit(path, payload, on_commit=on_commit,
                                        publish_fn=publish)
             if step is None:
@@ -1259,8 +1374,9 @@ class TorchLearner(Estimator):
 
     # ---- training ----
     def fit(self, df: DataFrame) -> TorchModel:
-        self._refuse_unported()
         with self._slo_session():
+            if self.getElastic():
+                return self._elastic_coordinator().fit(df)
             return self._fit(df)
 
     def _training_setup(self, cfg: dict, x_shape, dev, par=None):
@@ -1327,7 +1443,13 @@ class TorchLearner(Estimator):
                 return body(p, o, ss, *plan.rows(xb, yb, wb))
         return step, (params, tx.init(params), scale_state)
 
-    def _fit(self, df: DataFrame) -> TorchModel:
+    def _fit(self, df: DataFrame, elastic_ctx=None) -> TorchModel:
+        """One fit attempt. ``elastic_ctx`` (the elastic coordinator's)
+        threads the per-step host-loss check and the committed-step and
+        resume journal through the step loop; the fit runs on every rank
+        of the world, and in one process on its one device, whatever the
+        surviving hosts."""
+        self._elastic_setup(elastic_ctx)
         dev = self._device()
         cfg = self._cfg_with_precision(dict(self.getModelConfig()))
         # fit-side pipeline fusion: when Pipeline.fit composed the
@@ -1371,6 +1493,7 @@ class TorchLearner(Estimator):
         step, state = self._training_setup(cfg, x_shape, dev, par)
         state, start_epoch, start_step = self._resume_training_state(state,
                                                                      dev)
+        self._report_resume(elastic_ctx, state[0])
         bs_global = max(1, min(self.getBatchSize(), n_global))
         bs = max(1, bs_global // world)
         steps = max(1, n_global // (bs * world))
@@ -1378,15 +1501,20 @@ class TorchLearner(Estimator):
         # ranks feeding distinct data slices draw distinct orders
         rng_np = np.random.default_rng(self.getSeed()
                                        + meshlib.process_index())
-        scan = world == 1 and sum(a.nbytes for a in data) <= data_cap
+        # an elastic fit stays on the per-step feed path: step-interval
+        # checkpoints and the per-step host-loss check both need the host
+        # between steps (a mid-epoch loss on the scan path would cost the
+        # epoch)
+        scan = (world == 1 and elastic_ctx is None
+                and sum(a.nbytes for a in data) <= data_cap)
         run = self._run_epochs_scan if scan else self._run_epochs
         profile = self.getProfile()
         if profile:
             telemetry.profiler.enable()
         path = "scan" if scan else "feed"
         # concurrent fits on a thread pool must not interleave collectives
-        guard = (meshlib.collective_fit_lock if par is not None
-                 else contextlib.nullcontext())
+        guard = self._fit_guard(par)
+        extra = {} if scan else {"elastic_ctx": elastic_ctx}
         try:
             with guard, full_precision_matmuls(
                     self.getPrecision() == "f32"), \
@@ -1397,7 +1525,7 @@ class TorchLearner(Estimator):
                                    dev=dev, step=step, state=state,
                                    start_epoch=start_epoch,
                                    start_step=start_step, profile=profile,
-                                   feat=feat)
+                                   feat=feat, **extra)
         finally:
             # an async checkpoint still in flight lands before the caller
             # (or a refit) reads the directory
@@ -1441,13 +1569,20 @@ class TorchLearner(Estimator):
         the prefetch thread. Checkpoints, resume and the divergence halt
         work as in ``fit()``, except that a step checkpoint restarts its
         epoch (a generator cannot seek: the optimizer state is the
-        checkpoint's, some batches are seen again)."""
-        self._refuse_unported()
+        checkpoint's, some batches are seen again).
+
+        ``elastic=True`` routes the stream fit through the same
+        :class:`~..resilience.elastic.ElasticFitCoordinator` as fit(): a
+        host loss mid-stream re-meshes over the survivors and re-enters
+        from the checkpointed optimizer state (the epoch restarts)."""
         with self._slo_session():
+            if self.getElastic():
+                return self._elastic_coordinator().fit_stream(batches_fn)
             return self._fit_stream(batches_fn)
 
-    def _fit_stream(self, batches_fn) -> TorchModel:
+    def _fit_stream(self, batches_fn, elastic_ctx=None) -> TorchModel:
         from ..core import capture as capturelib
+        self._elastic_setup(elastic_ctx)
         dev = self._device()
         cfg = self._cfg_with_precision(dict(self.getModelConfig()))
         # fitStreamCaptured: batches are RAW wire-dtype columns, featurized
@@ -1496,6 +1631,7 @@ class TorchLearner(Estimator):
         step, state = self._training_setup(cfg, x_shape, dev, par)
         state, start_epoch, start_step = self._resume_training_state(state,
                                                                      dev)
+        self._report_resume(elastic_ctx, state[0])
         if start_step:
             log.warning("step checkpoint (epoch %d, step %d) resumes at the "
                         "epoch start on the stream path", start_epoch,
@@ -1509,8 +1645,7 @@ class TorchLearner(Estimator):
                       if self.getCheckpointDir() else 0)
         stats = {"epoch_losses": [], "epoch_seconds": [],
                  "stream_batches": [], "path": "stream"}
-        guard = (meshlib.collective_fit_lock if par is not None
-                 else contextlib.nullcontext())
+        guard = self._fit_guard(par)
         try:
             with guard, full_precision_matmuls(
                     self.getPrecision() == "f32"), \
@@ -1536,6 +1671,12 @@ class TorchLearner(Estimator):
                                     step=steps_run) as sp:
                                 def dispatch(_a, st=state, xb=xb, yb=yb,
                                              wb=wb):
+                                    if elastic_ctx is not None:
+                                        # host-loss check + elastic.step
+                                        # fault site; a verdict raises
+                                        # non-transient, skipping the
+                                        # retry, out to the re-mesh
+                                        elastic_ctx.check_step()
                                     faults.inject("trainer.step")
                                     if feat is not None:
                                         # xb is the placed raw columns
@@ -1550,9 +1691,13 @@ class TorchLearner(Estimator):
                                                  - t_step)
                             steps_run += 1
                             rows += n
+                            if elastic_ctx is not None:
+                                elastic_ctx.step_committed(epoch,
+                                                           steps_run - 1)
                             if ckpt_every and steps_run % ckpt_every == 0:
-                                self._save_checkpoint(epoch, state, dev,
-                                                      step=steps_run - 1)
+                                self._save_checkpoint(
+                                    epoch, state, dev, step=steps_run - 1,
+                                    elastic_ctx=elastic_ctx)
                     finally:
                         steps_it.close()
                     if steps_run == 0:
@@ -1563,7 +1708,8 @@ class TorchLearner(Estimator):
                     self._finish_epoch(epoch, loss, stats, t0, rows,
                                        state[2])
                     if self.getCheckpointDir():
-                        self._save_checkpoint(epoch, state, dev)
+                        self._save_checkpoint(epoch, state, dev,
+                                              elastic_ctx=elastic_ctx)
         finally:
             self._ckpt_barrier(close=True)
         stats.pop("skipped_seen", None)
@@ -1775,7 +1921,7 @@ class TorchLearner(Estimator):
 
     def _run_epochs(self, data, n, bs, steps, *, order_rng, dev, step,
                     state, start_epoch=0, start_step=0, profile=False,
-                    feat=None):
+                    feat=None, elastic_ctx=None):
         """The per-step feed path: one permutation per epoch, bs rows per
         step with cyclic wrap, staged ``prefetchDepth`` steps ahead. A step
         checkpoint re-enters its epoch at the next step. ``data`` is
@@ -1825,6 +1971,11 @@ class TorchLearner(Estimator):
                 with telemetry.trace.span("fit/step", epoch=epoch,
                                           step=s) as sp:
                     def dispatch(_a, st=state, cols=cols):
+                        if elastic_ctx is not None:
+                            # host-loss check + elastic.step fault site; a
+                            # verdict raises non-transient, skipping the
+                            # retry, out to the re-mesh
+                            elastic_ctx.check_step()
                         faults.inject("trainer.step")
                         xb, yb = cols if feat is None else feat(*cols)
                         return step(*st, xb, yb, wb)
@@ -1835,14 +1986,18 @@ class TorchLearner(Estimator):
                     capturelib._m_fit_fused.inc()
                 _m_step_time.observe(time.perf_counter() - t_step)
                 epoch_steps += 1
+                if elastic_ctx is not None:
+                    elastic_ctx.step_committed(epoch, s)
                 if s < steps - 1:
                     if ckpt_every and (s + 1) % ckpt_every == 0:
-                        self._save_checkpoint(epoch, state, dev, step=s)
+                        self._save_checkpoint(epoch, state, dev, step=s,
+                                              elastic_ctx=elastic_ctx)
                     continue
                 self._finish_epoch(epoch, loss, stats, t0, epoch_steps * bs,
                                    state[2])
                 if self.getCheckpointDir():
-                    self._save_checkpoint(epoch, state, dev)
+                    self._save_checkpoint(epoch, state, dev,
+                                          elastic_ctx=elastic_ctx)
                 t0 = time.perf_counter()
                 epoch_steps = 0
         finally:

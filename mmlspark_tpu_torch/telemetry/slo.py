@@ -30,8 +30,9 @@ blips the budget absorbs. This module is that layer over
 rolling step-time medians compared against the fleet median with a MAD
 band; a host running consistently slow is a straggler verdict an
 elastic training supervisor reports (and an operator can act on) long
-before heartbeats stop. The port's elastic runtime is ROADMAP.md Queue 1
-item 13b; the detector is ready for it.
+before heartbeats stop: the port's elastic runtime
+(resilience/elastic.py ``TrainSupervisor``) feeds it from heartbeat
+progress.
 
 The PyTorch port's own copy of ``mmlspark_tpu/telemetry/slo.py`` (it imports
 no jax): the same metric, span and environment-variable names, so a

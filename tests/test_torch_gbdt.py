@@ -365,7 +365,7 @@ def test_leafwise_mesh_and_multi_process_fits_raise_naming_item_12(
                               np.zeros((5, 15), np.float32)), device="cpu")
 
 
-def test_unported_paths_raise_naming_their_roadmap_items():
+def test_unported_paths_raise_naming_their_roadmap_items(tmp_path):
     from mmlspark_tpu_torch.parallel import mesh as tmesh
     x, y = _data()
     p = teng.GBDTParams(num_iterations=1)
@@ -378,8 +378,19 @@ def test_unported_paths_raise_naming_their_roadmap_items():
             mesh=tmesh.create_mesh(), device="cpu"))
         for k, v in want.items():
             np.testing.assert_array_equal(got[k], v, err_msg=learner)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        teng.fit_gbdt_elastic(x, y, p, checkpoint_dir="unused")
+    # item 13b's elastic fit is ported (tests/test_torch_elastic.py): a
+    # clean run grows the serial fit's trees; tree_learner must shard rows
+    for learner in ("data", "auto"):
+        got = tstages._ensemble_to_state(teng.fit_gbdt_elastic(
+            x, y, p._replace(tree_learner=learner),
+            checkpoint_dir=str(tmp_path / learner), n_hosts=2,
+            grace=30.0, device="cpu"))
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=learner)
+    with pytest.raises(ValueError, match="shard rows"):
+        teng.fit_gbdt_elastic(x, y, p._replace(tree_learner="feature"),
+                              checkpoint_dir=str(tmp_path / "f"),
+                              device="cpu")
     # the pipeline-capture body is ported: the traced walk over every row
     # gives the dense predict's margins (NaN rows included)
     ens = teng.fit_gbdt(x, y, teng.GBDTParams(num_iterations=3, max_depth=3,
@@ -392,11 +403,20 @@ def test_unported_paths_raise_naming_their_roadmap_items():
     got = teng.traced_raw_levelwise(params, torch.from_numpy(xn), 3, 1)
     np.testing.assert_array_equal(
         got.numpy(), teng.predict_raw(ens, xn, predict_impl="dense"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tstages.LightGBMClassifier(
-            device="cpu", growthPolicy="depthwise",
-            elasticConfig={"checkpointDir": "unused"}).fit(
-                _vec_df(x, y, DataFrame))
+    # elasticConfig routes the stage fit through fit_gbdt_elastic: the
+    # same model as the plain stage fit; it needs a checkpointDir
+    df = _vec_df(x, y, DataFrame)
+    stage = dict(device="cpu", growthPolicy="depthwise", numIterations=3)
+    el = tstages.LightGBMClassifier(
+        elasticConfig={"checkpointDir": str(tmp_path / "stage"),
+                       "hosts": 2, "graceSeconds": 30.0}, **stage).fit(df)
+    plain = tstages.LightGBMClassifier(**stage).fit(df)
+    np.testing.assert_array_equal(
+        np.asarray(el.transform(df).col("rawPrediction").tolist()),
+        np.asarray(plain.transform(df).col("rawPrediction").tolist()))
+    with pytest.raises(ValueError, match="checkpointDir"):
+        tstages.LightGBMClassifier(elasticConfig={"hosts": 2},
+                                   **stage).fit(df)
 
 
 def test_predict_impl_resolution_and_eligibility():

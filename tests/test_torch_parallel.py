@@ -326,12 +326,20 @@ def test_rendezvous_times_out_on_missing_worker(tmp_path):
     assert time.monotonic() - t0 < 60
 
 
-def test_elastic_half_raises_naming_item_13b():
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        distributed.elastic_initialize("/tmp")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        distributed.RendezvousCoordinator()
+def test_elastic_half_raises_naming_item_13b(tmp_path, monkeypatch):
+    """The elastic half is ported (tests/test_torch_elastic.py,
+    tests/test_torch_elastic_multiproc.py): with no launcher contract
+    elastic_initialize is single-process mode (False, no generation
+    armed), and a coordinator proposes generation 1 under a fresh lease."""
+    monkeypatch.delenv(distributed.ENV_COORDINATOR, raising=False)
+    assert distributed.elastic_initialize(str(tmp_path / "ck"),
+                                          device="cpu") is False
     assert distributed.rendezvous_coordinator() is None
+    rdzv = distributed.RendezvousCoordinator(str(tmp_path), "host0",
+                                             device="cpu")
+    doc = rdzv.propose(["host0"])
+    assert doc["generation"] == 1 and doc["ranks"] == {"host0": 0}
+    assert doc["leader"] == "host0" and rdzv.lease.held()
     if not torch.cuda.is_available():      # a CUDA rank never uses gloo
         with pytest.raises(RuntimeError, match="no CUDA device"):
             distributed.initialize("127.0.0.1:1", 1, 0, device="cuda")

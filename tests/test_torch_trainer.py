@@ -361,13 +361,18 @@ def test_init_params_shapes_and_distributions():
     ("tensorParallel", 2), ("sequenceParallel", 2), ("expertParallel", 2),
     ("pipelineParallel", 2), ("elastic", True),
     ("checkpointDir", "/ckpt")])
-def test_unported_params_raise(param, value):
-    """Elastic training raises naming its ROADMAP item (checkpoints are
-    ported, so ``checkpointDir`` raises only with elastic training). The
-    four parallel Params are ported (tests/test_torch_parallel_fit.py):
-    with no process group the world is one rank, and each raises the JAX
-    package's ValueError for one device instead of running unsharded."""
+def test_unported_params_raise(param, value, tmp_path):
+    """Every Param of the list is ported now. The four parallel Params
+    (tests/test_torch_parallel_fit.py): with no process group the world is
+    one rank, and each raises the JAX package's ValueError for one device
+    instead of running unsharded. Elastic training
+    (tests/test_torch_elastic.py) needs a checkpointDir, and raises the
+    JAX package's ValueError without one; with one (``value`` names a
+    directory under ``tmp_path``) the elastic fit runs its one attempt
+    and ends on the plain fit's parameters."""
     df, _ = _frames(rows=8, seed=8)
+    if param == "checkpointDir":
+        value = str(tmp_path / value.strip("/"))
     extra = {"elastic": True} if param == "checkpointDir" else {}
     learner = TorchLearner(modelConfig=CFG, device="cpu", featuresCol="tokens",
                            **{param: value}, **extra)
@@ -384,8 +389,16 @@ def test_unported_params_raise(param, value):
         with pytest.raises(ValueError, match=one_rank[param]):
             learner.fit(df)
         return
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        learner.fit(df)
+    if param == "elastic":
+        with pytest.raises(ValueError, match="requires checkpointDir"):
+            learner.fit(df)
+        return
+    model = learner.fit(df)
+    plain = TorchLearner(modelConfig=CFG, device="cpu", featuresCol="tokens",
+                         deviceDataCap=1).fit(df)
+    got, want = model.getModelParams(), plain.getModelParams()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert model._fit_stats["path"] == "feed"
 
 
 def test_fit_stream_and_cuda_without_a_card_raise():
